@@ -1,0 +1,19 @@
+"""repro_torch — MILO on PyTorch and CUDA (NVIDIA Hopper).
+
+A port of the JAX package ``repro`` that mirrors its layout and names.  It
+imports ``torch`` and numpy only: nothing of JAX and nothing of ``repro``
+(the tests import both to hold one against the other).
+
+Covered so far: the paper's Algorithm 1 on the flat, dense, by-class path —
+``MiloSession.preprocess`` (rescaled-cosine Gram → stochastic-greedy graph-cut
+SGE bank → full-greedy disparity-min WRE importance → ``MiloMetadata``) and
+``MiloSession.train`` (curriculum plans → plain-loop MLP training).  The Gram
+tiles go through a hand-written CUDA kernel (``kernels/similarity``) when
+``use_pallas=True``.
+
+Entry points run on the card (``device="cuda"``) unless the caller asks for
+the CPU; without a card they raise instead of carrying on elsewhere.
+"""
+from repro_torch.device import resolve_device
+
+__all__ = ["resolve_device"]

@@ -1,0 +1,22 @@
+"""Device resolution shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device = "cuda") -> torch.device:
+    """``"cuda"``/``"cpu"`` (or a ``torch.device``) → ``torch.device``.
+
+    A CUDA device without a card raises: the port never falls back to the
+    CPU on its own, so a run that was meant for the card cannot quietly
+    measure something else.
+    """
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain versions on the CPU"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(device)!r}; use 'cuda' or 'cpu'")
+    return dev

@@ -1,0 +1,29 @@
+"""repro_torch.selection — the front door for subset selection on PyTorch.
+
+* ``SelectionPlan`` / ``Selector`` — the weighted per-epoch protocol.
+* ``build_selector(name, **cfg)`` — registry factory (milo, full, random,
+  adaptive_random so far).
+* ``MiloSession`` — one-call facade: ``preprocess()`` / ``train()``.
+"""
+from repro_torch.selection.plan import PHASES, SelectionPlan, uniform_plan
+from repro_torch.selection.base import Selector
+from repro_torch.selection.registry import (
+    available_selectors,
+    build_selector,
+    register,
+    selector_entry,
+)
+from repro_torch.selection.selectors import (
+    AdaptiveRandomConfig,
+    FullConfig,
+    MiloConfig,
+    RandomConfig,
+)
+from repro_torch.selection.session import MiloSession, MiloSessionConfig, TrainReport
+
+__all__ = [
+    "PHASES", "SelectionPlan", "Selector", "uniform_plan", "available_selectors",
+    "build_selector", "register", "selector_entry", "AdaptiveRandomConfig",
+    "FullConfig", "MiloConfig", "RandomConfig", "MiloSession", "MiloSessionConfig",
+    "TrainReport",
+]

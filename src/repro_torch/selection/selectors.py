@@ -1,0 +1,146 @@
+"""The ported selection strategies: ``milo``, ``full``, ``random`` and
+``adaptive_random`` (port of ``repro.selection.selectors``).
+
+The other names of the reference's registry raise ``KeyError`` through
+``registry.selector_entry`` until their slice lands (see ROADMAP).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from repro_torch.core.curriculum import CurriculumConfig
+from repro_torch.core.metadata import MiloMetadata
+from repro_torch.core.milo import MiloSelector
+from repro_torch.selection.base import Selector
+from repro_torch.selection.plan import SelectionPlan, uniform_plan
+from repro_torch.selection.registry import register
+
+
+@dataclasses.dataclass
+class MiloConfig:
+    metadata: MiloMetadata | None = None
+    metadata_path: str | None = None
+    total_epochs: int = 40
+    kappa: float = 1.0 / 6.0
+    R: int = 1
+    seed: int = 0
+    expected_config: dict | None = None
+    expected_hash: str | None = None
+    # where the WRE draws run, and the draw seam (see core.milo.MiloSelector)
+    device: str | torch.device = "cuda"
+    wre_noise: Callable[[int], Any] | None = None
+
+    def resolve_metadata(self) -> MiloMetadata:
+        if self.metadata is not None:
+            return self.metadata
+        if self.metadata_path is not None:
+            return MiloMetadata.load(
+                self.metadata_path,
+                expected_config=self.expected_config,
+                expected_hash=self.expected_hash,
+            )
+        raise ValueError("milo selector needs `metadata` or `metadata_path`")
+
+
+@register("milo", MiloConfig, paper="MILO",
+          doc="easy-to-hard curriculum over precomputed SGE bank + WRE draws")
+class MiloPlanSelector(Selector):
+    """MILO curriculum: SGE-bank lookups early, WRE Gumbel draws after —
+    per-epoch cost O(k), independent of the model (paper Alg. 1)."""
+
+    def __init__(self, cfg: MiloConfig):
+        self.cfg = cfg
+        self.metadata = cfg.resolve_metadata()
+        self.curriculum = CurriculumConfig(
+            total_epochs=cfg.total_epochs, kappa=cfg.kappa, R=cfg.R
+        )
+        self._inner = MiloSelector(self.metadata, self.curriculum, seed=cfg.seed,
+                                   device=cfg.device, wre_noise=cfg.wre_noise)
+        self._config_hash = self.metadata.config_hash()
+
+    @property
+    def k(self) -> int:
+        return self.metadata.k
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        idx = self._inner.indices_for_epoch(epoch)
+        phase = self.curriculum.phase(epoch)
+        if phase == "sge":
+            window = (epoch // self.curriculum.R) % self.metadata.sge_subsets.shape[0]
+        else:
+            window = (epoch - self.curriculum.sge_epochs) // self.curriculum.R
+        return uniform_plan(
+            idx, phase, epoch,
+            selector="milo", seed=self.cfg.seed, window=int(window),
+            config_hash=self._config_hash,
+        )
+
+    def reset_cache(self) -> None:
+        self._inner._cache_epoch = -1
+
+
+@dataclasses.dataclass
+class FullConfig:
+    n: int
+
+
+@register("full", FullConfig, paper="FULL", doc="no selection — every sample, every epoch")
+class FullPlanSelector(Selector):
+    """The whole dataset every epoch (skyline / no-selection baseline)."""
+
+    def __init__(self, cfg: FullConfig):
+        self.cfg = cfg
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(
+            np.arange(self.cfg.n, dtype=np.int64), "fixed", epoch, selector="full"
+        )
+
+
+@dataclasses.dataclass
+class RandomConfig:
+    n: int
+    k: int
+    seed: int = 0
+
+
+@register("random", RandomConfig, paper="RANDOM", doc="one fixed random subset")
+class RandomPlanSelector(Selector):
+    """Fixed random subset drawn once at construction (the reference's
+    numpy draw, so both packages pick the same subset)."""
+
+    def __init__(self, cfg: RandomConfig):
+        self.cfg = cfg
+        self._idx = np.random.default_rng(cfg.seed).choice(cfg.n, size=cfg.k, replace=False)
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(self._idx, "fixed", epoch, selector="random", seed=self.cfg.seed)
+
+
+@dataclasses.dataclass
+class AdaptiveRandomConfig:
+    n: int
+    k: int
+    R: int = 1
+    seed: int = 0
+
+
+@register("adaptive_random", AdaptiveRandomConfig, paper="ADAPTIVE-RANDOM",
+          doc="fresh random subset every R epochs")
+class AdaptiveRandomPlanSelector(Selector):
+    """Fresh random subset every R epochs, deterministic in (seed, window)
+    with the reference's numpy draw."""
+
+    def __init__(self, cfg: AdaptiveRandomConfig):
+        self.cfg = cfg
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        window = epoch // self.cfg.R
+        rng = np.random.default_rng(self.cfg.seed * 7919 + window)
+        idx = rng.choice(self.cfg.n, size=self.cfg.k, replace=False)
+        return uniform_plan(idx, "adaptive", epoch, selector="adaptive_random",
+                            seed=self.cfg.seed, window=window)

@@ -1,0 +1,464 @@
+"""``MiloSession`` — the one-call facade for the paper's workflow, on PyTorch.
+
+Port of ``repro.selection.session``::
+
+    session = MiloSession(MiloSessionConfig(subset_fraction=0.1, total_epochs=40,
+                                            use_pallas=True), device="cuda")
+    session.preprocess(features, labels)        # once per (dataset, k)
+    r1 = session.train(features, labels, test_x=tx, test_y=ty)
+
+``preprocess`` runs the model-agnostic stage (or reloads a saved artifact
+whose config matches); ``train`` wires a registry-built selector into
+``Pipeline`` + ``Trainer`` with plan weights flowing into the loss.  The
+config is the reference's, field for field, so its keys and every
+artifact's ``config_hash`` are the same; ``device`` is a constructor keyword
+argument, not a field.  ``tune`` is not ported yet (ROADMAP A7).
+"""
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+import time
+from typing import Any, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.metadata import MetadataMismatchError, MiloMetadata, is_preprocessed
+from repro_torch.core.milo import UNPORTED_PREPROCESS, MiloPreprocessor, refuse_unported
+from repro_torch.data.pipeline import Pipeline
+from repro_torch.device import resolve_device
+from repro_torch.models.classifier import accuracy, init_mlp, nesterov_update, weighted_nll
+from repro_torch.selection.base import Selector
+from repro_torch.selection.registry import build_selector, selector_entry
+from repro_torch.train.trainer import Trainer, TrainerConfig
+
+
+def _data_fingerprint(features: np.ndarray) -> str:
+    """Cheap content identity for a feature matrix."""
+    a = np.ascontiguousarray(np.asarray(features, np.float32))
+    return hashlib.sha256(a.tobytes()).hexdigest()[:16]
+
+
+#: config keys that must match when reusing a saved preprocessing artifact
+_PREPROCESS_KEYS = (
+    "subset_fraction", "n_sge_subsets", "eps", "easy_fn", "hard_fn",
+    "graph_cut_lambda", "classwise", "metric",
+)
+
+#: session knobs whose machinery is not ported yet (see core.milo.refuse_unported)
+UNPORTED_SESSION = {
+    "fused_training": (False, "A6 (fused training engine)"),
+    "multihost_init": (False, "A11 (multi-host execution)"),
+    "heartbeat_dir": (None, "A11 (multi-host liveness)"),
+    "selector_fallback": ((), "A9 (selector fallback chains)"),
+}
+
+
+@dataclasses.dataclass
+class MiloSessionConfig:
+    """Everything the session needs, in one object (the reference's fields,
+    names and defaults; see ``repro.selection.session.MiloSessionConfig``)."""
+
+    selector: str = "milo"
+    subset_fraction: float = 0.1
+    n_sge_subsets: int = 8
+    eps: float = 0.01
+    easy_fn: str = "graph_cut"
+    hard_fn: str = "disparity_min"
+    graph_cut_lambda: float = 0.4
+    classwise: bool = True
+    metric: str = "cosine"
+    gram_block: int = 2048
+    use_pallas: bool = False
+    gram_free: bool = False
+    bucket_classes: bool = True
+    sge_vmapped: bool = True
+    shard_selection: bool = False
+    lazy_gains: bool = False
+    lazy_threshold: float = 0.125
+    lazy_two_level: bool = False
+    exact_sge_candidates: bool = False
+    firewall: str | None = None
+    partition: str = "by_class"
+    partition_block: int = 4096
+    partition_seed: int = 0
+    refine_factor: int = 1
+    selector_fallback: tuple[str, ...] = ()
+    total_epochs: int = 40
+    kappa: float = 1.0 / 6.0
+    R: int = 1
+    seed: int = 0
+    prep_seed: int | None = None
+    fused_training: bool = False
+    superstep: int = 32
+    lr: float = 0.05
+    hidden: int = 64
+    n_classes: int | None = None
+    sub_steps: int = 4
+    batch_size: int = 0          # 0 = one full-subset batch per epoch
+    eval_every_epochs: int = 1
+    metadata_path: str | None = None
+    multihost_init: bool = False
+    heartbeat_dir: str | None = None
+    heartbeat_timeout: float = 60.0
+
+    def preprocessor(self, device: str | torch.device = "cuda") -> MiloPreprocessor:
+        return MiloPreprocessor(
+            subset_fraction=self.subset_fraction,
+            n_sge_subsets=self.n_sge_subsets,
+            eps=self.eps,
+            easy_fn=self.easy_fn,
+            hard_fn=self.hard_fn,
+            graph_cut_lambda=self.graph_cut_lambda,
+            classwise=self.classwise,
+            metric=self.metric,
+            gram_block=self.gram_block,
+            use_pallas=self.use_pallas,
+            gram_free=self.gram_free,
+            bucket_classes=self.bucket_classes,
+            sge_vmapped=self.sge_vmapped,
+            shard_selection=self.shard_selection,
+            lazy_gains=self.lazy_gains,
+            lazy_threshold=self.lazy_threshold,
+            lazy_two_level=self.lazy_two_level,
+            exact_sge_candidates=self.exact_sge_candidates,
+            firewall=self.firewall,
+            partition=self.partition,
+            partition_block=self.partition_block,
+            partition_seed=self.partition_seed,
+            refine_factor=self.refine_factor,
+            device=device,
+        )
+
+    def resolved_prep_seed(self) -> int:
+        return self.seed if self.prep_seed is None else self.prep_seed
+
+    def expected_artifact_config(self) -> dict[str, Any]:
+        """The stored-config keys a reusable artifact must agree on."""
+        return {k: getattr(self, k) for k in _PREPROCESS_KEYS}
+
+
+@dataclasses.dataclass
+class TrainReport:
+    final_acc: float
+    best_acc: float
+    train_time: float
+    steps: int
+    history: list[dict]
+
+
+class _ClassifierState(NamedTuple):
+    params: dict
+    mom: dict
+    step: int
+    lr0: float
+    total_steps: int
+
+
+def _classifier_step_fn(sub_steps: int):
+    """Weighted-CE Nesterov-SGD step with cosine decay; consumes the plan
+    weights the pipeline injects into ``batch["weights"]``.  The reference's
+    ``lax.scan`` over sub-steps is a loop here, with autograd per sub-step."""
+
+    def train_step(state: _ClassifierState, batch: dict):
+        x, y = batch["x"], batch["y"]
+        w = batch.get("weights")
+        if w is None:
+            w = torch.ones(x.shape[:1], dtype=torch.float32, device=x.device)
+        # the schedule in float32 on the host, as the reference computes it
+        f32 = np.float32
+        frac = f32(state.step) / max(f32(state.total_steps) - f32(1.0), f32(1.0))
+        lr = float(f32(state.lr0) * f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * min(frac, f32(1.0)))))
+        params, mom = state.params, state.mom
+        for p in params.values():
+            p.requires_grad_(True)
+        for _ in range(sub_steps):
+            loss = weighted_nll(params, x, y, w)
+            grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+            nesterov_update(params, mom, grads, lr)
+        new = _ClassifierState(params, mom, state.step + 1, state.lr0, state.total_steps)
+        return new, {"loss": loss.detach()}
+
+    return train_step
+
+
+class MiloSession:
+    """Facade over preprocess → (many) train, on ``device``."""
+
+    def __init__(
+        self,
+        config: MiloSessionConfig | None = None,
+        *,
+        device: str | torch.device = "cuda",
+        **overrides: Any,
+    ):
+        if config is None:
+            config = MiloSessionConfig(**overrides)
+        elif overrides:
+            config = dataclasses.replace(config, **overrides)
+        refuse_unported(config, UNPORTED_PREPROCESS)
+        refuse_unported(config, UNPORTED_SESSION)
+        self.device = resolve_device(device)
+        self.config = config
+        self.metadata: MiloMetadata | None = None
+        self.loaded_from_artifact = False
+
+    # -- stage 1: model-agnostic preprocessing ------------------------------
+
+    def preprocess(
+        self,
+        features: np.ndarray,
+        labels: np.ndarray | None = None,
+        *,
+        force: bool = False,
+        encoder_id: str = "precomputed",
+        sge_noise: Any = None,
+    ) -> MiloMetadata:
+        """Run (or load) the one-shot preprocessing pass.
+
+        A ``metadata_path`` naming an artifact whose config matches is loaded
+        instead of recomputed (``force=True`` recomputes).  ``sge_noise`` is
+        the draw seam of ``MiloPreprocessor.preprocess``.
+        """
+        cfg = self.config
+        if not force and cfg.metadata_path and is_preprocessed(cfg.metadata_path):
+            md = self._load_artifact(encoder_id, _data_fingerprint(features))
+            if md.m != len(features):
+                raise MetadataMismatchError(
+                    f"{cfg.metadata_path}: artifact was preprocessed over "
+                    f"{md.m} samples but this dataset has {len(features)} — "
+                    "same config, different data; pass force=True to rebuild"
+                )
+            self.metadata = md
+            self.loaded_from_artifact = True
+            return md
+        md = self.build_metadata(features, labels, encoder_id=encoder_id, sge_noise=sge_noise)
+        if cfg.metadata_path:
+            md.save(cfg.metadata_path)
+        self.metadata = md
+        self.loaded_from_artifact = False
+        return md
+
+    def build_metadata(
+        self,
+        features: np.ndarray,
+        labels: np.ndarray | None = None,
+        *,
+        encoder_id: str = "precomputed",
+        fingerprint: str | None = None,
+        sge_noise: Any = None,
+    ) -> MiloMetadata:
+        """The compute unit behind ``preprocess``: the stamped artifact,
+        without touching session state or ``metadata_path``."""
+        cfg = self.config
+        seed = cfg.resolved_prep_seed()
+        md = cfg.preprocessor(self.device).preprocess(
+            features, labels, seed, encoder_id=encoder_id, prep_seed=seed,
+            sge_noise=sge_noise,
+        )
+        md.config["data_fingerprint"] = (
+            fingerprint if fingerprint is not None else _data_fingerprint(features))
+        return md
+
+    def _load_artifact(self, encoder_id: str | None = None,
+                       data_fingerprint: str | None = None) -> MiloMetadata:
+        """Load + verify the configured artifact (the reference's checks)."""
+        cfg = self.config
+        path = cfg.metadata_path
+        md = MiloMetadata.load(path, expected_config=cfg.expected_artifact_config())
+        mismatch = {}
+        stored_enc = md.config.get("encoder_id")
+        if encoder_id is not None and stored_enc is not None and stored_enc != encoder_id:
+            mismatch["encoder_id"] = (stored_enc, encoder_id)
+        stored_fp = md.config.get("data_fingerprint")
+        if data_fingerprint is not None and stored_fp is not None and stored_fp != data_fingerprint:
+            raise MetadataMismatchError(
+                f"{path}: artifact was preprocessed over different data "
+                "(feature fingerprint mismatch); pass force=True to rebuild")
+        # knobs that change which trajectories the artifact holds
+        for knob in ("gram_free", "bucket_classes", "lazy_gains", "exact_sge_candidates"):
+            stored = md.config.get(knob)
+            if stored is not None and bool(stored) != getattr(cfg, knob):
+                mismatch[knob] = (stored, getattr(cfg, knob))
+        stored_seed = md.config.get("prep_seed")
+        if stored_seed is not None and stored_seed != cfg.resolved_prep_seed():
+            mismatch["prep_seed"] = (stored_seed, cfg.resolved_prep_seed())
+        if "firewall" in md.config and md.config["firewall"] != cfg.firewall:
+            mismatch["firewall"] = (md.config["firewall"], cfg.firewall)
+        stored_part = md.config.get("partition", "by_class")
+        if stored_part != cfg.partition:
+            mismatch["partition"] = (stored_part, cfg.partition)
+        stored_rf = int(md.config.get("refine_factor", 1))
+        if stored_rf != max(1, int(cfg.refine_factor)):
+            mismatch["refine_factor"] = (stored_rf, cfg.refine_factor)
+        if mismatch:
+            raise MetadataMismatchError(
+                f"{path}: config mismatch on {mismatch} (stored, expected)")
+        return md
+
+    def _require_metadata(self, n: int | None = None,
+                          features: np.ndarray | None = None) -> MiloMetadata:
+        if self.metadata is None:
+            if self.config.metadata_path and is_preprocessed(self.config.metadata_path):
+                self.metadata = self._load_artifact(
+                    data_fingerprint=(_data_fingerprint(features)
+                                      if features is not None else None))
+                self.loaded_from_artifact = True
+            else:
+                raise MetadataMismatchError(
+                    "no preprocessing artifact: call session.preprocess(...) first")
+        if n is not None and self.metadata.m != n:
+            raise MetadataMismatchError(
+                f"preprocessing artifact covers {self.metadata.m} samples but "
+                f"this dataset has {n} — same config, different data")
+        return self.metadata
+
+    # -- registry wiring ----------------------------------------------------
+
+    def selector(
+        self,
+        name: str | None = None,
+        *,
+        n: int,
+        epochs: int | None = None,
+        seed: int | None = None,
+        features: np.ndarray | None = None,
+        **extra: Any,
+    ) -> Selector:
+        """Build this session's selector from the registry (``milo``,
+        ``full``, ``random``, ``adaptive_random``); ``milo``'s WRE draws run
+        on the session's device and take ``wre_noise=`` through ``extra``."""
+        cfg = self.config
+        name = name or cfg.selector
+        selector_entry(name)  # KeyError for names not ported yet
+        epochs = epochs if epochs is not None else cfg.total_epochs
+        seed = seed if seed is not None else cfg.seed
+        explicit_k = "k" in extra
+        k = extra.pop("k", None)
+        if k is None:
+            k = (self.metadata.k if self.metadata is not None
+                 else max(1, int(round(cfg.subset_fraction * n))))
+        if name == "milo":
+            md = self._require_metadata(n, features)
+            if explicit_k and k != md.k:
+                raise ValueError(
+                    f"milo's subset size is fixed by the preprocessing "
+                    f"artifact (k={md.k}); rebuild the artifact to change it")
+            return build_selector("milo", metadata=md, total_epochs=epochs,
+                                  kappa=cfg.kappa, R=cfg.R, seed=seed,
+                                  device=self.device, **extra)
+        if name == "full":
+            if explicit_k:
+                raise ValueError("selector 'full' trains on the whole dataset; "
+                                 "`k` is not applicable")
+            return build_selector("full", n=n, **extra)
+        if name == "random":
+            return build_selector("random", n=n, k=k, seed=seed, **extra)
+        return build_selector("adaptive_random", n=n, k=k,
+                              R=extra.pop("R", cfg.R), seed=seed, **extra)
+
+    # -- stage 2: train any number of downstream models ---------------------
+
+    def train(
+        self,
+        features: np.ndarray,
+        labels: np.ndarray,
+        *,
+        test_x: np.ndarray,
+        test_y: np.ndarray,
+        selector: str | Selector | None = None,
+        epochs: int | None = None,
+        seed: int | None = None,
+        lr: float | None = None,
+        hidden: int | None = None,
+        **selector_kwargs: Any,
+    ) -> TrainReport:
+        """Train one downstream classifier on registry-selected subsets."""
+        cfg = self.config
+        dev = self.device
+        epochs = epochs if epochs is not None else cfg.total_epochs
+        seed = seed if seed is not None else cfg.seed
+        lr = lr if lr is not None else cfg.lr
+        hidden = hidden if hidden is not None else cfg.hidden
+        n = len(features)
+        if isinstance(selector, Selector) or hasattr(selector, "plan"):
+            if selector_kwargs:
+                raise ValueError(
+                    "selector is already a built instance; selector kwargs "
+                    f"{sorted(selector_kwargs)} would be silently ignored")
+            sel = selector
+        else:
+            sel = self.selector(selector, n=n, epochs=epochs, seed=seed,
+                                features=features, **selector_kwargs)
+
+        feats = np.asarray(features, np.float32)
+        labs = np.asarray(labels, np.int64)
+        # size the head over every label the run will see
+        max_label = int(max(labs.max(), np.asarray(test_y).max()))
+        if cfg.n_classes is None:
+            n_classes = max_label + 1
+        elif cfg.n_classes <= max_label:
+            raise ValueError(
+                f"n_classes={cfg.n_classes} cannot cover label {max_label} "
+                "present in the train/eval data")
+        else:
+            n_classes = cfg.n_classes
+
+        def make_batch(idx: np.ndarray) -> dict:
+            return {"x": feats[idx], "y": labs[idx]}
+
+        def put_batch(b: dict) -> dict:
+            return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+
+        plan0 = sel.plan(0).validate(n)
+        batch_size = cfg.batch_size or plan0.k
+        if batch_size > plan0.k:
+            raise ValueError(
+                f"batch_size={batch_size} exceeds the selected subset size "
+                f"k={plan0.k}; every epoch would yield zero batches")
+        pipe = Pipeline(make_batch, sel, batch_size, seed=seed)
+        steps = max(1, pipe.steps_per_epoch()) * epochs
+        train_step = _classifier_step_fn(cfg.sub_steps)
+
+        def init_state() -> _ClassifierState:
+            params = init_mlp(torch.Generator().manual_seed(seed), feats.shape[1],
+                              n_classes, hidden, device=dev)
+            mom = {k: torch.zeros_like(v) for k, v in params.items()}
+            return _ClassifierState(params, mom, 0, float(lr), steps)
+
+        tx = torch.as_tensor(np.asarray(test_x, np.float32), device=dev)
+        ty = torch.as_tensor(np.asarray(test_y, np.int64), device=dev)
+
+        def eval_fn(st: _ClassifierState) -> dict:
+            return {"acc": accuracy(st.params, tx, ty)}
+
+        trainer = Trainer(
+            train_step, pipe,
+            TrainerConfig(epochs=epochs, eval_every_epochs=cfg.eval_every_epochs,
+                          log_every_steps=1),
+            eval_fn=eval_fn, put_batch=put_batch,
+        )
+        # warm up outside the timed region (library handles, allocator, both
+        # curriculum phases' draws) on a throwaway state, then drop the plan
+        # caches so the timed run charges every epoch's selection
+        if plan0.phase in ("sge", "wre"):
+            sel.plan(max(epochs - 1, 0))
+        train_step(init_state(), put_batch(next(iter(pipe.epoch(0)))))
+        float(accuracy(init_state().params, tx, ty))
+        getattr(sel, "reset_cache", lambda: None)()
+        pipe.invalidate_plan_cache()
+
+        state = init_state()
+        t0 = time.perf_counter()
+        state = trainer.fit(state)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        train_time = time.perf_counter() - t0
+        final = float(accuracy(state.params, tx, ty))
+        accs = [float(h["acc"]) for h in trainer.history if "acc" in h] + [final]
+        return TrainReport(final_acc=final, best_acc=max(accs), train_time=train_time,
+                           steps=int(state.step), history=trainer.history)
+
+    def tune(self, *args: Any, **kwargs: Any):
+        raise NotImplementedError("MiloSession.tune is not ported yet (ROADMAP A7)")

@@ -1,0 +1,124 @@
+"""Rules the PyTorch port keeps: it never loads JAX or the JAX package, it
+never falls back to the CPU on its own, and every knob whose machinery is
+not ported yet refuses instead of being silently ignored."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.milo import MiloPreprocessor
+from repro_torch.selection import MiloSession, MiloSessionConfig, build_selector
+
+# the suite runs in parallel workers beside wall-clock-sensitive tests:
+# keep this file's PyTorch CPU work (and its subprocesses') on one thread
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+SLICE_ON_CPU = """
+import sys
+import numpy as np
+from repro_torch.data.datasets import GaussianMixtureDataset
+from repro_torch.selection import MiloSession
+
+ds = GaussianMixtureDataset(n=300, n_classes=3, dim=16, seed=0)
+s = MiloSession(use_pallas=True, total_epochs=6, device="cpu")
+s.preprocess(ds.x, ds.y)
+r = s.train(ds.x, ds.y, test_x=ds.x, test_y=ds.y)
+loaded = sorted(m for m in sys.modules
+                if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print("LOADED", loaded, r.final_acc)
+"""
+
+
+def _env():
+    env = dict(os.environ)  # inherit: a stripped env can hang interpreter startup
+    env["PYTHONPATH"] = str(ROOT / "src") + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "1"
+    return env
+
+
+def test_port_never_loads_jax_or_the_reference():
+    out = subprocess.run([sys.executable, "-c", SLICE_ON_CPU], capture_output=True, text=True,
+                         env=_env(), cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stderr
+    line = [ln for ln in out.stdout.splitlines() if ln.startswith("LOADED")][-1]
+    assert line.startswith("LOADED []"), line
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax_or_reference(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path.name} imports {name}"
+
+
+def test_default_device_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MiloSession()
+    with pytest.raises(RuntimeError, match="cuda"):
+        MiloPreprocessor()
+
+
+@pytest.mark.parametrize("knob,value", [
+    ("gram_free", True), ("shard_selection", True), ("lazy_gains", True),
+    ("firewall", "repair"), ("partition", "random_blocks"), ("refine_factor", 2),
+    ("fused_training", True), ("multihost_init", True), ("heartbeat_dir", "hb"),
+    ("selector_fallback", ("adaptive_random",)),
+])
+def test_unported_knobs_raise(knob, value):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        MiloSession(device="cpu", **{knob: value})
+    if knob in {f for f in MiloPreprocessor.__dataclass_fields__}:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            MiloPreprocessor(device="cpu", **{knob: value})
+
+
+def test_configs_build_from_each_other():
+    """Field names and defaults are the reference's: either package's config
+    builds the other's, and ``device`` is no field."""
+    from repro.core.milo import MiloPreprocessor as JPre
+    from repro.selection import MiloSessionConfig as JCfg
+    import dataclasses
+
+    assert dataclasses.asdict(MiloSessionConfig()) == dataclasses.asdict(JCfg())
+    assert dataclasses.asdict(MiloPreprocessor(device="cpu")) == dataclasses.asdict(JPre())
+    JPre(**dataclasses.asdict(MiloPreprocessor(device="cpu", use_pallas=True)))
+    MiloPreprocessor(**dataclasses.asdict(JPre(use_pallas=True)), device="cpu")
+    assert "device" not in dataclasses.asdict(MiloPreprocessor(device="cpu"))
+
+
+def test_unported_selectors_raise_keyerror():
+    for name in ("milo_fixed", "milo_hier", "craig_pb"):
+        with pytest.raises(KeyError, match="not ported yet"):
+            build_selector(name)
+    sel = build_selector("random", n=50, k=5, seed=0)
+    assert len(np.unique(sel.plan(0).indices)) == 5
+
+
+def test_chip_smoke_refuses_without_a_card_and_rehearses_on_cpu():
+    smoke = ROOT / "chip_smoke.py"
+    env = _env()
+    if not torch.cuda.is_available():
+        out = subprocess.run([sys.executable, str(smoke)], capture_output=True, text=True,
+                             env=env, cwd=ROOT, timeout=120)
+        assert out.returncode != 0 and '"ok"' not in out.stdout
+    out = subprocess.run([sys.executable, str(smoke), "--cpu-rehearsal"], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=300)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert out.stdout.strip().splitlines()[-1] == '{"ok": true, "rehearsal": "cpu"}'
