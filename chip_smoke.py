@@ -2,16 +2,19 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5, 6 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. device: name, count, ``nvidia-smi`` name and power limit; TF32 off.
 2. build: every ``src/repro_torch/csrc/*.cu`` into the git-ignored build
    directory, with the ``-Xptxas -v`` register/shared-memory report.
-3. each kernel against its plain version at the main path's shapes.
+3. each kernel against its plain version at the main path's shapes (and,
+   for the ``fl_gains`` family, at ragged shapes and for the bit-identity
+   properties the engines rely on).
 4. each kernel's time (CUDA events) beside its plain version, one PyTorch
-   library call and the card's bound; one ``{"kernels": [...]}`` line.
+   library call (or, for the fused gram-free kernels, the fp32 product
+   alone as a yardstick) and the card's bound.
 5. MILO's main path at full width through ``MiloSession(use_pallas=True)``:
    CIFAR-10's geometry (50,000 training rows in 10 classes, 10,000 test
    rows, d = 768, the ViT-B embedding width), preprocess with the paper's
@@ -19,8 +22,20 @@ Phases, in order; any failure ends the run with a non-zero exit:
    memory, test accuracy, artifact round trip.
 6. kernel route against plain route on one class: Gram, WRE importance,
    SGE graph-cut objective per bank slot.
+7. the gram-free path at the same width: ``MiloSession(gram_free=True,
+   use_pallas=True, hard_fn="facility_location", lazy_gains=True,
+   lazy_two_level=True)`` — no Gram; facility-location importance through
+   the lazy engine and the ``fl_gains`` kernels; stage times, launches,
+   full recomputes, rows gathered per lazy step, peak memory, accuracy.
+8. on class 0 of that path: kernel route against plain route, two-level
+   against single-level gathers, and ``verify_argmax`` against eager greedy.
+9. ``make_facility_location_pallas`` (the dense-Gram ``fl_gains`` kernel)
+   against the plain facility location over class 0's Gram, greedy to 500.
 
-The last line is ``{"ok": true, "device": {"platform": "gpu", ...}}``.
+Then one ``{"kernels": [...]}`` line (launches: each kernel's path —
+phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
+dense ``fl_gains`` kernel), the card's name and power limit, and, last,
+``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
 
@@ -79,6 +94,43 @@ def similarity_bound_ms(mq: int, mk: int, d: int, dtype: torch.dtype) -> tuple[f
     nbytes = (mq + mk) * d * torch.tensor([], dtype=dtype).element_size() + mq * mk * 4
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fl_bound_ms(kernel: str, n: int, m: int, d: int = 0) -> tuple[float, str]:
+    """Least time for an fl_gains call over n ground rows and m candidates:
+    operations at the fp32 peak (the fused product's 2·d per pair, plus the
+    epilogue's subtract, max and add — six for the delta's two relu terms),
+    or bytes (fp32 inputs read once, the (m,) output written once)."""
+    if kernel == "fl_gains":                 # materialised K (n, m)
+        flops, nbytes = 3.0 * n * m, 4.0 * (n * m + n + m)
+    elif kernel == "fl_gains_gram_free":     # z (n, d), zc (m, d), c (n,)
+        flops, nbytes = (2.0 * d + 4) * n * m, 4.0 * ((n + m) * d + n + m)
+    else:                                    # delta: z (b, d), zc (m, d), two covers
+        flops, nbytes = (2.0 * d + 6) * n * m, 4.0 * ((n + m) * d + 2 * n + m)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def fl_tol(n_rows: int) -> dict:
+    """Kernel against plain version: sums of up to ``n_rows`` fp32 terms ≤ 1
+    in two orders (the kernel's chunked fp32 sum, the plain version's float64
+    running sum), each term's similarity from another product order:
+    rtol 1e-4 plus 2^-20 per summed row."""
+    return dict(rtol=1e-4, atol=max(1e-5, n_rows * 2.0**-20))
+
+
+def fl_inputs(gen: torch.Generator, n: int, m: int, d: int, dev, *, n_real: int | None = None):
+    """Unit rows z (n, d) — rows past ``n_real`` all zero at cover +inf, the
+    bucketed padding — candidates zc (m, d), covers c and c_new >= c."""
+    z = rows(gen, n, d, dev, torch.float32, True)
+    zc = rows(gen, m, d, dev, torch.float32, True)
+    c = torch.rand((n,), generator=gen, device=dev)
+    c[torch.rand((n,), generator=gen, device=dev) < 0.1] = float("inf")
+    if n_real is not None:
+        z[n_real:] = 0.0
+        c[n_real:] = float("inf")
+    c_new = torch.maximum(c, torch.rand((n,), generator=gen, device=dev))
+    return z, zc, c, c_new
 
 
 def phase_device(rehearsal: bool) -> dict:
@@ -166,6 +218,154 @@ def phase_kernel_timing(dev, smi: str) -> dict:
     return main
 
 
+def _check(name: str, out: torch.Tensor, ref: torch.Tensor, tol: dict) -> float:
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max()) if out.numel() else 0.0
+    ok = torch.allclose(out, ref, **tol) and not torch.isnan(out).any()
+    log(f"{name}: max_abs_err={err:.3e} (rtol {tol['rtol']}, atol {tol['atol']:.2e}) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version")
+    return err
+
+
+def _bit_equal(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    same = torch.equal(a, b)
+    log(f"{name}: {'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError(f"{name}: not bit-equal (max diff {float((a - b).abs().max()):.3e})")
+
+
+def phase_fl_kernel_checks(dev) -> dict[str, float]:
+    """The fl_gains family against its plain versions (max abs error per
+    kernel) at the gram-free path's shapes and at ragged ones, and the
+    bit-identity properties the lazy engine and ``gains_at`` rely on."""
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.fl_gains import ref as fr
+
+    log("== phase 3b: fl_gains kernels against their plain versions")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    worst = dict.fromkeys(fk.launches, 0.0)
+    for n, m, d, n_real in ((8192, 8192, 768, 5000), (5000, 5000, 100, None), (8192, 300, 100, 5000)):
+        z, zc, c, c_new = fl_inputs(gen, n, m, d, dev, n_real=n_real)
+        tag = f"({n}, {m}, {d}{', ' + str(n_real) + ' real rows' if n_real else ''})"
+        out = fk.fl_gains_gram_free_cuda(z, zc, c)
+        err = _check(f"fl_gains_gram_free {tag}", out, fr.fl_gains_gram_free_ref(z, zc, c), fl_tol(n))
+        worst["fl_gains_gram_free"] = max(worst["fl_gains_gram_free"], err)
+        for b in (1, 8, 64, 1024):
+            rsel = torch.randperm(n_real or n, generator=gen, device=dev)[:b]
+            args = (z[rsel].contiguous(), zc, c[rsel].contiguous(), c_new[rsel].contiguous())
+            out = fk.fl_gains_gram_free_delta_cuda(*args)
+            err = _check(f"fl_gains_gram_free_delta b={b} {tag}", out,
+                         fr.fl_gains_gram_free_delta_ref(*args), fl_tol(b))
+            worst["fl_gains_gram_free_delta"] = max(worst["fl_gains_gram_free_delta"], err)
+        K = fr._sim(z, zc)
+        out = fk.fl_gains_cuda(K, c)
+        err = _check(f"fl_gains {tag}", out,
+                     fr.fl_gains_ref(K, c), fl_tol(n))
+        worst["fl_gains"] = max(worst["fl_gains"], err)
+        del K
+
+    log("-- bit-identity properties")
+    z, _, c, c_new = fl_inputs(gen, 8192, 1, 768, dev, n_real=5000)
+    full = fk.fl_gains_gram_free_cuda(z, z, c)
+    _bit_equal("fl_gains_gram_free: two launches", full, fk.fl_gains_gram_free_cuda(z, z, c))
+    cand = torch.randint(0, 8192, (640,), generator=gen, device=dev)
+    _bit_equal("fl_gains_gram_free: gains_at (640 candidates) == gathered gains",
+               fk.fl_gains_gram_free_cuda(z, z[cand].contiguous(), c), full[cand])
+    covers = torch.stack([c, c_new])
+    both = fk.fl_gains_gram_free_cuda(z, z[torch.stack([cand, cand.flip(0)])].contiguous(), covers)
+    _bit_equal("fl_gains_gram_free: batch of 2 covers == one call per run",
+               both[1], fk.fl_gains_gram_free_cuda(z, z[cand.flip(0)].contiguous(), c_new))
+    for b in (1, 8, 64, 1024):
+        rsel = torch.randperm(5000, generator=gen, device=dev)[:b]
+        args = (z[rsel].contiguous(), z, c[rsel].contiguous(), c_new[rsel].contiguous())
+        d_full = fk.fl_gains_gram_free_delta_cuda(*args)
+        _bit_equal(f"fl_gains_gram_free_delta b={b}: two launches", d_full,
+                   fk.fl_gains_gram_free_delta_cuda(*args))
+        _bit_equal(f"fl_gains_gram_free_delta b={b}: candidate slice [1000, 4321) == full call",
+                   fk.fl_gains_gram_free_delta_cuda(args[0], z[1000:4321], *args[2:]),
+                   d_full[1000:4321])
+        pad = 1024 - b
+        if pad:
+            inf = torch.full((pad,), float("inf"), device=dev)
+            _bit_equal(f"fl_gains_gram_free_delta b={b}: padded to 1024 with +inf rows == b rows",
+                       fk.fl_gains_gram_free_delta_cuda(
+                           torch.cat([args[0], z[:pad]]), z, torch.cat([args[2], inf]),
+                           torch.cat([args[3], inf])), d_full)
+    # the update column (``gram_free._sim_col``, a cuBLAS product) against
+    # the similarities the fused kernels build in their tiles: with one
+    # ground row at cover 0 the gram-free kernel returns that row's tile
+    # values themselves (one term per sum, added to exact zeros)
+    from repro_torch.core.gram_free import _sim_col
+
+    zero = torch.zeros((1,), device=dev)
+    n_diff = worst_ulps = 0
+    for i in (0, 1, 777, 4999):
+        tile = fk.fl_gains_gram_free_cuda(z[i:i + 1].contiguous(), z[:5000], zero)
+        col = _sim_col(z[:5000], torch.tensor([i], device=dev))[0]
+        n_diff += int((tile != col).sum())
+        ulp = torch.from_numpy(np.spacing(col.abs().cpu().numpy())).to(dev)
+        worst_ulps = max(worst_ulps, float(((tile - col).abs() / ulp).max()))
+    log(f"update column (_sim_col, cuBLAS) against the kernels' tile values, 4 x 5000: "
+        f"{n_diff} differ, by at most {worst_ulps:.0f} ulp")
+    # the same column from a two-row product (a matrix product in cuBLAS,
+    # where a one-row product takes its matrix-vector path)
+    two = torch.tensor([777, 777], device=dev)
+    col2 = (0.5 + 0.5 * (z[two] @ z[:5000].T))[0]
+    tile = fk.fl_gains_gram_free_cuda(z[777:778].contiguous(), z[:5000], zero)
+    log(f"  the same column from a two-row product: {int((tile != col2).sum())} of 5000 differ")
+    K = fr._sim(z, z)
+    dense = fk.fl_gains_cuda(K, c)
+    _bit_equal("fl_gains: two launches", dense, fk.fl_gains_cuda(K, c))
+    _bit_equal("fl_gains: gains_at (640 columns) == gathered gains",
+               fk.fl_gains_cuda(K[:, cand].contiguous(), c), dense[cand])
+    return worst
+
+
+def phase_fl_kernel_timing(dev, smi: str) -> dict[str, dict]:
+    """Each fl_gains kernel at the gram-free path's shapes: kernel, plain
+    version, bound, and for the fused kernels the fp32 cuBLAS product of the
+    same shape as a product-only yardstick (no one PyTorch call computes
+    these functions, so ``library_ms`` stays null)."""
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.fl_gains import ref as fr
+
+    log("== phase 4b: fl_gains kernel timing (CUDA events, mean of 20 after 3 warm-up)")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n, d = 8192, 768
+    z, _, c, c_new = fl_inputs(gen, n, 1, d, dev, n_real=5000)
+    out: dict[str, dict] = {}
+
+    def report(kernel: str, label: str, ms: float, plain_ms: float, bound: tuple, product_ms=None):
+        extra = "" if product_ms is None else f"  fp32 product alone (torch.mm) {product_ms:.4f} ms"
+        log(f"{kernel} {label}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound[0]:.4f} ms "
+            f"({bound[1]}){extra}  [{smi}]")
+        return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                    library_ms=None, product_ms=product_ms)
+
+    ms = cuda_ms(lambda: fk.fl_gains_gram_free_cuda(z, z, c))
+    plain = cuda_ms(lambda: fr.fl_gains_gram_free_ref(z, z, c), iters=5)
+    prod = cuda_ms(lambda: torch.mm(z, z.T))
+    out["fl_gains_gram_free"] = report("fl_gains_gram_free", f"({n}, {n}, {d})", ms, plain,
+                                       fl_bound_ms("fl_gains_gram_free", n, n, d), prod)
+    for b in (1, 8, 64, 1024):
+        rsel = torch.randperm(5000, generator=gen, device=dev)[:b]
+        args = (z[rsel].contiguous(), z, c[rsel].contiguous(), c_new[rsel].contiguous())
+        ms = cuda_ms(lambda: fk.fl_gains_gram_free_delta_cuda(*args))
+        plain = cuda_ms(lambda: fr.fl_gains_gram_free_delta_ref(*args), iters=5)
+        prod = cuda_ms(lambda: torch.mm(args[0], z.T))
+        row = report("fl_gains_gram_free_delta", f"b={b} ({b}, {n}, {d})", ms, plain,
+                     fl_bound_ms("fl_gains_gram_free_delta", b, n, d), prod)
+        out[f"fl_gains_gram_free_delta_b{b}"] = row
+    out["fl_gains_gram_free_delta"] = out["fl_gains_gram_free_delta_b8"]
+    K = fr._sim(z, z)
+    ms = cuda_ms(lambda: fk.fl_gains_cuda(K, c))
+    plain = cuda_ms(lambda: fr.fl_gains_ref(K, c), iters=5)
+    out["fl_gains"] = report("fl_gains", f"({n}, {n})", ms, plain, fl_bound_ms("fl_gains", n, n))
+    return out
+
+
 def _timed(fn, times: dict, key: str, dev):
     """Wrap a preprocessing stage so its wall time (synchronised) adds up."""
     def wrapper(*args, **kwargs):
@@ -248,7 +448,7 @@ def phase_main_path(dev, *, n: int, n_classes: int, dim: int, epochs: int) -> di
         assert back.config_hash() == md.config_hash()
         np.testing.assert_array_equal(back.sge_subsets, md.sge_subsets)
     log(f"artifact round trip: config_hash {md.config_hash()} reloads equal")
-    return dict(x=x, y=y, launches=launches, session=session)
+    return dict(x=x, y=y, tx=tx, ty=ty, launches=launches, session=session)
 
 
 def phase_routes(dev, x: np.ndarray, y: np.ndarray, session) -> None:
@@ -302,6 +502,240 @@ def phase_routes(dev, x: np.ndarray, y: np.ndarray, session) -> None:
         f"max rel diff {worst:.3e}")
 
 
+GRAM_FREE_PATH = dict(gram_free=True, use_pallas=True, hard_fn="facility_location",
+                      lazy_gains=True, lazy_two_level=True)
+
+
+def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
+    """Phase 7: the gram-free, lazy facility-location path through
+    ``MiloSession`` on the same data as phase 5."""
+    from repro_torch.core import greedy as greedy_mod
+    from repro_torch.core import milo as milo_mod
+    from repro_torch.core.metadata import MiloMetadata
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.similarity import similarity as sim_kernel
+    from repro_torch.selection import MiloSession
+
+    log("== phase 7: gram-free path (MiloSession, gram_free, lazy facility-location WRE)")
+    session = MiloSession(total_epochs=epochs, lr=0.01, device=dev, **GRAM_FREE_PATH)
+    times: dict[str, float] = {}
+    runs: list = []
+    lazy_orig = greedy_mod.lazy_greedy
+
+    def lazy_recorded(*args, **kwargs):
+        before = dict(fk.launches)
+        res = lazy_orig(*args, **kwargs)
+        runs.append((res, args[1].shape[0], {k: fk.launches[k] - before[k] for k in before}))
+        return res
+
+    stages = {"sge": "run_sge", "wre": "greedy_importance"}
+    originals = {attr: getattr(milo_mod, attr) for attr in stages.values()}
+    for key, attr in stages.items():
+        setattr(milo_mod, attr, _timed(originals[attr], times, key, dev))
+    greedy_mod.lazy_greedy = lazy_recorded
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for k in fk.launches:
+        fk.launches[k] = 0
+    sim_kernel.launches = 0
+    try:
+        t0 = time.perf_counter()
+        md = session.preprocess(x, y)
+        t_pre = time.perf_counter() - t0
+    finally:
+        for attr, fn in originals.items():
+            setattr(milo_mod, attr, fn)
+        greedy_mod.lazy_greedy = lazy_orig
+    launches = dict(fk.launches)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    t0 = time.perf_counter()
+    report = session.train(x, y, test_x=tx, test_y=ty)
+    t_train = time.perf_counter() - t0
+
+    n_classes = len(np.unique(y))
+    steps = [int((r.rows_evaluated > 0).sum()) for r, _, _ in runs]
+    full = [int((r.rows_evaluated == n).sum()) for r, n, _ in runs]
+    lazy_rows = torch.cat([r.rows_evaluated[(r.rows_evaluated > 0) & (r.rows_evaluated < n)]
+                           for r, n, _ in runs]).float()
+    log(f"preprocess {t_pre:.3f} s: sge bank {times['sge']:.3f} s, wre importance "
+        f"{times['wre']:.3f} s ({sum(steps)} greedy steps, "
+        f"{times['wre'] / max(sum(steps), 1) * 1e6:.1f} us per step)")
+    log(f"train {t_train:.3f} s ({report.train_time:.3f} s timed loop, {report.steps} steps), "
+        f"final test accuracy {report.final_acc:.4f}")
+    log(f"launches: fl_gains_gram_free {launches['fl_gains_gram_free']}, "
+        f"fl_gains_gram_free_delta {launches['fl_gains_gram_free_delta']}, "
+        f"fl_gains {launches['fl_gains']}, similarity {sim_kernel.launches}")
+    log(f"full recomputes (rows_evaluated == n): {sum(full)} of {sum(steps)} steps, per class {full}")
+    log(f"rows gathered per lazy step: mean {float(lazy_rows.mean()) if len(lazy_rows) else 0:.2f}, "
+        f"max {int(lazy_rows.max()) if len(lazy_rows) else 0}, {len(lazy_rows)} lazy steps")
+    log(f"max_memory_allocated (preprocess): "
+        f"{peak if peak is None else f'{peak / 2**20:.1f} MiB'}")
+
+    k = md.k
+    assert len(runs) == n_classes, f"{len(runs)} lazy passes for {n_classes} classes"
+    assert md.sge_subsets.shape == (session.config.n_sge_subsets, k)
+    assert all(len(np.unique(s)) == k for s in md.sge_subsets)
+    assert np.isfinite(md.wre_importance).all() and (md.wre_importance > 0).all()
+    assert abs(float(md.wre_probs.sum()) - 1.0) < 1e-4
+    assert report.final_acc >= 0.5, f"test accuracy {report.final_acc} is near chance"
+    assert sim_kernel.launches == 0, "the gram-free path builds no Gram"
+    if dev.type == "cuda":
+        # B2 runs at every lazy pass's init (and full recomputes), B3 on its lazy steps
+        assert launches["fl_gains_gram_free"] >= n_classes + sum(full), launches
+        assert launches["fl_gains_gram_free_delta"] >= n_classes, launches
+        assert launches["fl_gains_gram_free_delta"] == len(lazy_rows), launches
+        per_class = [(d["fl_gains_gram_free"], d["fl_gains_gram_free_delta"]) for _, _, d in runs]
+        log(f"(fl_gains_gram_free, fl_gains_gram_free_delta) launches per class: {per_class}")
+        assert all(b2 >= 1 and b3 >= 1 for b2, b3 in per_class), per_class
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "milo_gram_free.npz")
+        md.save(path)
+        back = MiloMetadata.load(path, expected_hash=md.config_hash())
+        np.testing.assert_array_equal(back.wre_importance, md.wre_importance)
+        reuse = MiloSession(total_epochs=epochs, lr=0.01, device=dev, metadata_path=path,
+                            **GRAM_FREE_PATH)
+        assert reuse.preprocess(x, y).config_hash() == md.config_hash() and reuse.loaded_from_artifact
+    log(f"artifact round trip: config_hash {md.config_hash()} reloads equal and is reused")
+    return dict(launches=launches, session=session, md=md)
+
+
+def _class0(x, y, session, dev):
+    from repro_torch.core.milo import _next_pow2
+
+    feats = x[y == 0]
+    n_c = len(feats)
+    n_pad = _next_pow2(n_c)
+    k_c = max(1, int(round(session.config.subset_fraction * n_c)))
+    return feats, n_c, n_pad, k_c, torch.arange(n_pad, device=dev) < n_c
+
+
+def phase_gram_free_routes(dev, x, y, session) -> None:
+    """Phase 8: class 0 of the gram-free path — kernel against plain route,
+    two-level against single-level gathers, verify_argmax against greedy."""
+    import dataclasses
+
+    from repro_torch.core import greedy
+    from repro_torch.core.milo import MiloPreprocessor
+
+    log("== phase 8: gram-free routes on class 0")
+    cfg = session.config
+    feats, n_c, n_pad, k_c, valid = _class0(x, y, session, dev)
+    pre = cfg.preprocessor(dev)
+
+    def run(p: MiloPreprocessor):
+        t0 = time.perf_counter()
+        easy, hard = p._set_fn(p.easy_fn), p._set_fn(p.hard_fn)
+        subs, imp = p._class_selection(feats, k_c, bucket=True, easy=easy, hard=hard,
+                                       generator=torch.Generator(device=dev).manual_seed(0))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        return subs, imp, time.perf_counter() - t0
+
+    subs_k, imp_k, t_k = run(pre)
+    plain = dataclasses.replace(pre, use_pallas=False, device=dev)
+    subs_p, imp_p, t_p = run(plain)
+    np.testing.assert_array_equal(subs_k, subs_p)
+    diff = np.abs(imp_k - imp_p)
+    sorted_diff = float(np.abs(np.sort(imp_k) - np.sort(imp_p)).max())
+    log(f"kernel route {t_k:.3f} s, plain route {t_p:.3f} s: sge bank identical; wre importance "
+        f"max_abs_diff {diff.max():.3e} ({int((diff > 1e-6).sum())} elements > 1e-6, "
+        f"{int((diff > 5e-4 + 1e-4 * np.abs(imp_p)).sum())} beyond rtol 1e-4 + atol 5e-4), "
+        f"sorted max_abs_diff {sorted_diff:.3e}, range [{imp_p.min():.4g}, {imp_p.max():.4g}]")
+    np.testing.assert_allclose(np.sort(imp_k), np.sort(imp_p), rtol=1e-5, atol=1e-5)
+
+    # element by element: the two routes round their sums differently (the
+    # kernel's chunked fp32 sums, the plain version's float64 running sums),
+    # so a near-tied pair may be picked in the other order, and then the
+    # later of the pair gains less.  The trajectories must agree until the
+    # first parting, where the two picks' gains must be a near-tie; the
+    # importance of everything picked before it must agree
+    hard = pre._set_fn(pre.hard_fn)
+    z = torch.zeros((n_pad, x.shape[1]), device=dev)
+    z[:n_c] = torch.as_tensor(feats, device=dev)
+    z[:n_c] /= z[:n_c].norm(dim=1, keepdim=True).clamp_min(1e-8)
+    budget = pre._lazy_budget(n_pad, hard)
+    tr_k = greedy.lazy_greedy(hard, z, n_pad, budget=budget, valid=valid, two_level=True)
+    tr_p = greedy.lazy_greedy(plain._set_fn(plain.hard_fn), z, n_pad, budget=budget, valid=valid,
+                              two_level=True)
+    parted = torch.nonzero(tr_k.indices[:n_c] != tr_p.indices[:n_c])
+    t = int(parted[0]) if len(parted) else n_c
+    tol = 4 * float(np.spacing(np.float32(float(tr_p.gains[0]))))
+    if t < n_c:
+        gap = abs(float(tr_k.gains[t]) - float(tr_p.gains[t]))
+        log(f"trajectories part at step {t} of {n_c}: kernel picks {int(tr_k.indices[t])} "
+            f"(gain {float(tr_k.gains[t])!r}), plain {int(tr_p.indices[t])} "
+            f"(gain {float(tr_p.gains[t])!r}): a gap of {gap:.3e} (near-tie bound {tol:.3e}, "
+            "4 ulps of the first gain, the cached gains' resolution)")
+        assert gap <= tol + 1e-5 * abs(float(tr_p.gains[t])), "the routes part at a clear gap"
+    else:
+        log(f"trajectories equal over all {n_c} steps")
+    before = tr_p.indices[:t].cpu().numpy()
+    np.testing.assert_allclose(imp_k[before], imp_p[before], rtol=1e-4, atol=5e-4)
+    log(f"importance of the {t} elements picked before the parting: allclose (rtol 1e-4, atol 5e-4)")
+
+    subs_1, imp_1, t_1 = run(dataclasses.replace(pre, lazy_two_level=False, device=dev))
+    np.testing.assert_array_equal(subs_1, subs_k)
+    np.testing.assert_array_equal(imp_1, imp_k)
+    log(f"lazy_two_level False ({t_1:.3f} s) against True: importance bit-identical")
+
+    t0 = time.perf_counter()
+    ver = greedy.lazy_greedy(hard, z, k_c, budget=budget, valid=valid,
+                             two_level=True, verify_argmax=True)
+    eager = greedy.greedy(hard, z, k_c, valid=valid)
+    same = torch.equal(ver.indices, eager.indices)
+    log(f"verify_argmax lazy against eager greedy ({k_c} picks, {time.perf_counter() - t0:.3f} s): "
+        f"indices {'equal' if same else 'DIFFER'}, gains max_abs_diff "
+        f"{float((ver.gains - eager.gains).abs().max()):.3e}")
+    assert same, "verify_argmax picks differ from eager greedy"
+
+
+def phase_fl_dense(dev, x, y, session) -> int:
+    """Phase 9: ``make_facility_location_pallas`` (the dense fl_gains kernel)
+    against the plain facility location, greedy over class 0's Gram built
+    by the similarity kernel.  Returns the fl_gains launches of this run."""
+    from repro_torch.core import greedy, submodular
+    from repro_torch.core.similarity import gram_matrix_blocked
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+
+    log("== phase 9: make_facility_location_pallas against facility_location on class 0")
+    feats, n_c, n_pad, k_c, valid = _class0(x, y, session, dev)
+    A = gram_matrix_blocked(torch.as_tensor(feats, device=dev), block=session.config.gram_block,
+                            use_pallas=True, n_pad=n_pad)
+    k = min(500, n_c)
+    fn_k = submodular.make_facility_location_pallas()
+    fk.launches["fl_gains"] = 0
+    t0 = time.perf_counter()
+    a = greedy.greedy(fn_k, A, k, valid=valid)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_k = time.perf_counter() - t0
+    launches = fk.launches["fl_gains"]
+    t0 = time.perf_counter()
+    b = greedy.greedy(submodular.facility_location, A, k, valid=valid)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t_p = time.perf_counter() - t0
+    parted = torch.nonzero(a.indices != b.indices)
+    log(f"greedy to {k} over the ({n_pad}, {n_pad}) Gram: kernel {t_k:.3f} s ({launches} fl_gains "
+        f"launches), plain {t_p:.3f} s; gains max_abs_diff {float((a.gains - b.gains).abs().max()):.3e}")
+    if len(parted):
+        t = int(parted[0])
+        state = fn_k.init(A, 1)
+        for j in b.indices[:t]:
+            fn_k.update(state, A, j.view(1))
+        g = submodular.facility_location.gains(state, A)[0]
+        ga, gb = float(g[a.indices[t]]), float(g[b.indices[t]])
+        ulps = abs(ga - gb) / float(np.spacing(np.float32(max(ga, gb))))
+        log(f"indices part at step {t}: kernel picks {int(a.indices[t])} (plain gain {ga!r}), plain "
+            f"picks {int(b.indices[t])} (gain {gb!r}): a gap of {ulps:.1f} fp32 ulps")
+        assert ulps <= 4, f"the routes part at step {t} by {ulps:.1f} ulps (> 4)"
+    else:
+        log("indices equal")
+    if dev.type == "cuda":
+        assert launches == k, f"{launches} fl_gains launches for {k} greedy steps"
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
@@ -320,6 +754,10 @@ def main() -> int:
         dev = torch.device("cpu")
         main_run = phase_main_path(dev, n=1200, n_classes=4, dim=32, epochs=12)
         phase_routes(dev, main_run["x"], main_run["y"], main_run["session"])
+        gf = phase_gram_free_path(dev, main_run["x"], main_run["y"], main_run["tx"],
+                                  main_run["ty"], epochs=12)
+        phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
+        phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -327,9 +765,23 @@ def main() -> int:
     dev = torch.device("cuda")
     phase_build()
     err = phase_kernel_checks(dev)
+    fl_err = phase_fl_kernel_checks(dev)
     timing = phase_kernel_timing(dev, dev_info["smi"])
+    fl_timing = phase_fl_kernel_timing(dev, dev_info["smi"])
     main_run = phase_main_path(dev, n=60000, n_classes=10, dim=768, epochs=12)
     phase_routes(dev, main_run["x"], main_run["y"], main_run["session"])
+    gf = phase_gram_free_path(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
+                              epochs=12)
+    phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
+    dense_launches = phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
+    fl_src = "src/repro_torch/csrc/fl_gains.cu"
+    fl_rows = [
+        ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",
+         gf["launches"]["fl_gains_gram_free"], "(8192, 8192, 768)"),
+        ("fl_gains_gram_free_delta", "src/repro/kernels/fl_gains/fl_gains.py:133",
+         gf["launches"]["fl_gains_gram_free_delta"], "(8, 8192, 768): b = 8 touched rows"),
+        ("fl_gains", "src/repro/kernels/fl_gains/fl_gains.py:52", dense_launches, "(8192, 8192)"),
+    ]
     kernels = [{
         "name": "similarity",
         "route": "cuda",
@@ -342,7 +794,23 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"],
-    }]
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": fl_src,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": fl_err[name],
+        "ms": fl_timing[name]["ms"],
+        "plain_ms": fl_timing[name]["plain_ms"],
+        "bound_ms": fl_timing[name]["bound_ms"],
+        "bound_by": fl_timing[name]["bound_by"],
+        "library_ms": None,
+        # no one PyTorch call computes these functions; the fused kernels'
+        # fp32 product alone (torch.mm, TF32 off) is kept as a yardstick
+        "product_ms": fl_timing[name]["product_ms"],
+        "shape": shape,
+    } for name, replaces, launches, shape in fl_rows]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(dev_info["smi"])
     print(json.dumps({"kernels": kernels}))

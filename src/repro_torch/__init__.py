@@ -9,7 +9,10 @@ Covered so far: the paper's Algorithm 1 on the flat, dense, by-class path —
 SGE bank → full-greedy disparity-min WRE importance → ``MiloMetadata``) and
 ``MiloSession.train`` (curriculum plans → plain-loop MLP training).  The Gram
 tiles go through a hand-written CUDA kernel (``kernels/similarity``) when
-``use_pallas=True``.
+``use_pallas=True``.  Also the gram-free route (``gram_free=True``: the set
+functions contract features, no Gram) with facility-location importance
+under lazy gains (``lazy_gains=True``), whose gains and lazy corrections go
+through the hand-written ``fl_gains`` kernels (``kernels/fl_gains``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise instead of carrying on elsewhere.

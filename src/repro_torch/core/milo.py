@@ -10,6 +10,11 @@ Port of ``repro.core.milo`` on the flat by-class path:
   4. merge to global indices; return a ``MiloMetadata`` artifact whose
      config (and ``config_hash``) is key-for-key the reference's.
 
+With ``gram_free=True`` no Gram is built: the set functions of
+``core.gram_free`` contract the row-normalised features directly (O(n·d)
+memory).  With ``lazy_gains=True`` a facility-location WRE pass runs
+through ``greedy.lazy_greedy``.
+
 ``MiloSelector`` serves the subsets during training: an SGE-bank lookup or
 one Gumbel top-k WRE draw per epoch window.
 
@@ -27,7 +32,7 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import submodular
+from repro_torch.core import gram_free as gram_free_mod, submodular
 from repro_torch.core.curriculum import CurriculumConfig
 from repro_torch.core.exploration import taylor_softmax, weighted_sample_without_replacement
 from repro_torch.core.greedy import greedy_importance, sge as run_sge, stochastic_candidate_count
@@ -37,15 +42,13 @@ from repro_torch.core.partition import (
     merge_class_selections,
     proportional_budgets,
 )
-from repro_torch.core.similarity import gram_matrix_blocked
+from repro_torch.core.similarity import gram_matrix_blocked, normalize_rows
 from repro_torch.device import resolve_device
 
 #: knobs of the reference whose machinery is not ported yet:
 #: field -> (the only value the port accepts, ROADMAP item that ports the rest)
 UNPORTED_PREPROCESS = {
-    "gram_free": (False, "A2 (gram-free set functions, kernels B2-B3)"),
     "shard_selection": (False, "A11 (multi-device selection)"),
-    "lazy_gains": (False, "A3 (lazy_greedy)"),
     "firewall": (None, "A9 (health firewall)"),
     "partition": ("by_class", "A8 (hierarchical path)"),
     "refine_factor": (1, "A8 (hierarchical path)"),
@@ -123,7 +126,24 @@ class MiloPreprocessor:
         refuse_unported(self, UNPORTED_PREPROCESS)
         self.device = resolve_device(device)
 
+    def _lazy_budget(self, n_run: int, fn: submodular.SetFunction) -> int | None:
+        """Touched-rows budget of the WRE full-greedy pass, or None when lazy
+        gains are off, the set function has no lazy hooks, or the threshold
+        would save nothing."""
+        if not self.lazy_gains or fn.lazy is None:
+            return None
+        budget = max(1, int(n_run * self.lazy_threshold))
+        return None if budget >= n_run else budget
+
     def _set_fn(self, name: str) -> submodular.SetFunction:
+        if self.gram_free:
+            if name == "graph_cut":
+                return gram_free_mod.make_gram_free_graph_cut(self.graph_cut_lambda)
+            if name == "facility_location":
+                # the kernels on a CUDA device, their plain versions on the CPU
+                return gram_free_mod.make_gram_free_facility_location(
+                    use_pallas=self.use_pallas)
+            return gram_free_mod.get_gram_free(name)
         if name == "graph_cut":
             return submodular.make_graph_cut(self.graph_cut_lambda)
         return submodular.get(name)
@@ -152,13 +172,21 @@ class MiloPreprocessor:
             n_run = _next_pow2(n_c)
             k_run = min(n_run, _next_pow2(k_c))
             valid = torch.arange(n_run, device=self.device) < n_c
-        A = gram_matrix_blocked(z, metric=self.metric, block=self.gram_block,
-                                use_pallas=self.use_pallas, n_pad=n_run)
+        if self.gram_free:
+            # the "kernel" the engines take is the row-normalised features,
+            # zero rows past n_c (the padding sentinel): O(n·d), no Gram
+            A = torch.zeros((n_run, z.shape[1]), dtype=torch.float32, device=self.device)
+            A[:n_c] = normalize_rows(z.float())
+        else:
+            A = gram_matrix_blocked(z, metric=self.metric, block=self.gram_block,
+                                    use_pallas=self.use_pallas, n_pad=n_run)
         s_sge = (stochastic_candidate_count(n_c, k_c, self.eps)
                  if self.exact_sge_candidates else None)
         subs = run_sge(easy, A, k_run, n_subsets=self.n_sge_subsets, eps=self.eps,
                        valid=valid, s=s_sge, generator=generator, noise=noise)
-        imp = greedy_importance(hard, A, valid=valid)
+        imp = greedy_importance(hard, A, valid=valid,
+                                lazy_budget=self._lazy_budget(n_run, hard),
+                                lazy_two_level=self.lazy_two_level)
         return (subs[:, :k_c].cpu().numpy().astype(np.int64),
                 imp[:n_c].cpu().numpy().astype(np.float32))
 
@@ -180,6 +208,11 @@ class MiloPreprocessor:
         (n_sge_subsets, k_run, n_run) array in the run's (bucketed) geometry.
         """
         features = np.asarray(features)
+        if self.gram_free and self.metric != "cosine":
+            raise ValueError(
+                f"gram_free preprocessing supports metric='cosine' only (got "
+                f"{self.metric!r}); the gram-free set functions rebuild "
+                "rescaled-cosine columns from features on the fly")
         m = features.shape[0]
         k = max(1, int(round(self.subset_fraction * m)))
         labels_arr = (np.zeros((m,), np.int64) if labels is None

@@ -13,22 +13,44 @@ row per run of the SGE bank; ``B = 1`` for a single greedy run):
 ``update`` modifies the state's tensors in place (the reference returns new
 arrays): a bank at n = 8192 holds (B, n) states that need not be copied on
 every one of its k steps.  ``gains_at(state, K, cand)`` equals
-``gains(state, K).gather(1, cand)`` elementwise.
+``gains(state, K).gather(1, cand)`` bit for bit: facility location sums
+its rows in a fixed order (``kernels/fl_gains/ref.py`` ``sum_rows``, and
+the CUDA kernels), so a candidate's gain does not depend on the block it
+was evaluated in.
 
-``LazyHooks`` and the kernel-backed facility location
-(``make_facility_location_pallas``) are not ported yet (ROADMAP A2).
+``LazyHooks`` let ``greedy.lazy_greedy`` cache facility location's gain
+vector and correct it over the rows whose cover moved;
+``make_facility_location_pallas`` computes the gains with the CUDA kernel
+``fl_gains`` (``kernels/fl_gains``) on the card.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
+
+from repro_torch.kernels.fl_gains import ops as fl_ops
+from repro_torch.kernels.fl_gains.ref import fl_gains_ref, sum_rows
 
 State = dict[str, Any]
 
 # Large-but-finite stand-in for +inf so disparity-min stays NaN-free.
 _DMIN_CAP = 2.0
+
+
+class LazyHooks(NamedTuple):
+    """What the lazy-gain greedy engine (``greedy.lazy_greedy``) needs.
+
+    ``cover(state) -> (B, n)``: the running per-row cover ``c``.
+    ``delta_gains(K, rows, c_old_rows, c_new_rows) -> (n,)``: for every
+    candidate ``e``, ``sum_i relu(K_ie - c_new_i) - relu(K_ie - c_old_i)``
+    over just the given rows.  Rows with an infinite cover in both vectors
+    add exact zeros, which is how the engine pads its touched-row block.
+    """
+
+    cover: Callable[[State], torch.Tensor]
+    delta_gains: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +64,8 @@ class SetFunction:
     # f(S) from scratch for a boolean mask (tests and objective checks)
     evaluate: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     gains_at: Callable[[State, torch.Tensor, torch.Tensor], torch.Tensor] | None = None
+    # lazy-gain hooks (facility location); None: the engines evaluate every step
+    lazy: LazyHooks | None = None
 
 
 def gains_at(fn: SetFunction, state: State, K: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -66,13 +90,14 @@ def _fl_init(K: torch.Tensor, batch: int) -> State:
 
 
 def _fl_gains(state: State, K: torch.Tensor) -> torch.Tensor:
-    return torch.stack([torch.relu(K - c[:, None]).sum(0) for c in state["c"]])
+    # one run at a time: an (n, n) block per run, not (B, n, n) at once
+    return torch.stack([fl_gains_ref(K, c) for c in state["c"]])
 
 
 def _fl_gains_at(state: State, K: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
-    # column gather: O(n·s) per run instead of O(n²)
-    return torch.stack([torch.relu(K[:, cb] - c[:, None]).sum(0)
-                        for c, cb in zip(state["c"], cand)])
+    # column gather: O(n·s) per run instead of O(n²); the same fixed-order
+    # row sum over the same column values, so bit-equal to ``_fl_gains``
+    return torch.stack([fl_gains_ref(K[:, cb], c) for c, cb in zip(state["c"], cand)])
 
 
 def _fl_update(state: State, K: torch.Tensor, j: torch.Tensor) -> State:
@@ -86,8 +111,17 @@ def _fl_eval(mask: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return K[:, mask].max(dim=1).values.sum()
 
 
+def _fl_delta_gains(K: torch.Tensor, rows: torch.Tensor, c_old: torch.Tensor,
+                    c_new: torch.Tensor) -> torch.Tensor:
+    # row gather: only the (b, n) block of rows whose cover moved is read
+    Kb = K.index_select(0, rows).float()
+    return sum_rows(torch.relu(Kb - c_new[:, None]) - torch.relu(Kb - c_old[:, None]))
+
+
+_FL_LAZY = LazyHooks(cover=lambda state: state["c"], delta_gains=_fl_delta_gains)
+
 facility_location = SetFunction("facility_location", _fl_init, _fl_gains, _fl_update,
-                                _fl_eval, gains_at=_fl_gains_at)
+                                _fl_eval, gains_at=_fl_gains_at, lazy=_FL_LAZY)
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +232,26 @@ def _dm_eval(mask: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
 
 disparity_min = SetFunction("disparity_min", _dm_init, _dm_gains, _dm_update, _dm_eval,
                             gains_at=_dm_gains_at)
+
+
+def make_facility_location_pallas() -> SetFunction:
+    """Facility location with the ``fl_gains`` kernel as its gain engine
+    (port of the reference's factory of the same name).
+
+    On a CUDA ``K`` the gains launch the hand-written kernel; on a CPU ``K``
+    they take its plain version.  Same semantics as ``facility_location``;
+    the lazy hooks are the dense row gathers, which need no kernel.
+    """
+
+    def gains(state: State, K: torch.Tensor) -> torch.Tensor:
+        return fl_ops.fl_gains(K, state["c"])
+
+    def gains_at(state: State, K: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+        # gather each run's s candidate columns, then one (B, n, s) launch
+        return fl_ops.fl_gains(K[:, cand].movedim(1, 0).contiguous(), state["c"])
+
+    return SetFunction("facility_location_pallas", _fl_init, gains, _fl_update, _fl_eval,
+                       gains_at=gains_at, lazy=_FL_LAZY)
 
 
 REGISTRY = {

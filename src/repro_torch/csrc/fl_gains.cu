@@ -1,0 +1,282 @@
+// Facility-location greedy gains for NVIDIA Hopper (sm_90a): the three
+// kernels of the `fl_gains` family.
+//
+// Replaces the TPU kernels of src/repro/kernels/fl_gains/fl_gains.py:
+//   fl_gains_pallas                 (_fl_gains_kernel)
+//       g_j = sum_i relu(K_ij - c_i) over a materialised K (n, n_cand);
+//   fl_gains_gram_free_pallas       (_fl_gains_gram_free_kernel)
+//       the same with K_ij = 0.5 + 0.5 * <z_i, zc_j> built on the fly;
+//   fl_gains_gram_free_delta_pallas (_fl_gains_gram_free_delta_kernel)
+//       sum_i relu(K_ij - c_new_i) - relu(K_ij - c_old_i) over touched rows.
+//
+// Summation order.  On the TPU the ground axis i is the innermost,
+// sequential grid axis, revisiting the output.  Blocks here run in parallel
+// in no order, so i is cut into fixed chunks of CHUNK rows (by absolute row
+// index): one block sums one chunk for a block of candidates in a fixed
+// order and writes a per-chunk partial; a second kernel adds the partials
+// chunk by chunk in index order (with one chunk the first kernel writes the
+// result itself).  No atomics.  Every candidate's sum is therefore a fixed
+// function of its own column and of the row order alone: repeated launches
+// are bit-identical, a candidate's gain does not depend on which other
+// candidates share the launch (gains_at == gathered gains; the delta on a
+// candidate slice == the full call), and rows past the end or carrying an
+// infinite cover add exact zeros in the same slots (the lazy engine's
+// two-level gathers are bit-identical).
+//
+// +inf covers are exact zeros: relu(x - inf) = fmaxf(-inf, 0) = 0, and the
+// delta of a row with c_old = c_new = +inf is 0 - 0.  Ragged n, n_cand and
+// d are masked in the kernels; nothing is padded by the caller.
+//
+// Arithmetic: IEEE fp32 only.  The fused products are k-ordered FMAs on the
+// CUDA cores starting from 0 (no TF32, no split-k), the same order as the
+// similarity kernel (csrc/similarity.cu), and 0.5 + 0.5 * acc rounds once
+// (0.5 * acc is exact).  Every gain feeds a greedy argmax.
+//
+// Bounds on this card (H100 SXM, 67 TFLOP/s fp32, 3.35 TB/s):
+//   gram-free gains at (8192, 8192, 768): 2 * n * n_cand * d = 1.03e11 FLOP
+//     against ~50 MB moved -> bound by operations (~1.54 ms);
+//   delta at b touched rows: 2 * b * n_cand * d FLOP against the zc read
+//     (25 MB at 8192 x 768) -> bound by bytes below b ~ 40, by operations
+//     above (~0.19 ms at b = 1024);
+//   gains over a materialised (8192, 8192) K: 268 MB read -> bound by bytes
+//     (~80 us).
+// This first version is simple and right: a 64 x 64 (rows x candidates)
+// tile per step with both operands staged through shared memory in 16-deep
+// slabs, as in the similarity kernel.  Making it fast (wgmma with 3xTF32,
+// TMA-fed pipelines) is later work.
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr int BM = 64;            // ground rows per tile
+constexpr int BN = 64;            // candidates per block
+constexpr int BK = 16;            // k-slab depth
+constexpr int TM = 4;             // rows per thread
+constexpr int TN = 4;             // candidates per thread
+constexpr int RS = BM / TM;       // 16: row stride between a thread's rows
+constexpr int CS = BN / TN;       // 16: column stride between a thread's columns
+constexpr int THREADS = RS * CS;  // 256
+constexpr int CHUNK = 256;        // ground rows per chunk (fixed: sets the order)
+constexpr int COLS = 256;         // candidates per block of the materialised kernel
+
+static_assert(CHUNK % BM == 0, "a chunk is a whole number of row tiles");
+static_assert(BM * BK == THREADS * 4 && BN * BK == THREADS * 4,
+              "the loader moves exactly 4 values of each operand per thread");
+
+// Gram-free gains (DELTA = false: ca = c) or lazy delta (DELTA = true:
+// ca = c_old, cb = c_new) of one chunk of ground rows for BN candidates.
+// grid = (ceil(n_cand / BN), n_chunks, batch).  Writes out[b, chunk, j]
+// (partial_stride = n_cand, batch_stride = n_chunks * n_cand).
+template <bool DELTA>
+__global__ void __launch_bounds__(THREADS)
+gram_free_kernel(const float* __restrict__ z, const float* __restrict__ zc,
+                 long long zc_bstride, const float* __restrict__ ca,
+                 const float* __restrict__ cb, long long c_bstride,
+                 float* __restrict__ out, long long out_bstride, int n, int n_cand,
+                 int d) {
+  __shared__ float As[BK][BM + 1];  // ground rows, k-major
+  __shared__ float Bs[BK][BN + 1];  // candidate rows, k-major
+  __shared__ float cov_a[BM];
+  __shared__ float cov_b[BM];
+  __shared__ float red[RS][BN];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % CS;
+  const int ty = tid / CS;
+  const int col0 = blockIdx.x * BN;
+  const int chunk = blockIdx.y;
+  const int row_begin = chunk * CHUNK;
+  const int row_end = min(n, row_begin + CHUNK);
+  zc += blockIdx.z * zc_bstride;
+  ca += blockIdx.z * c_bstride;
+  if (DELTA) cb += blockIdx.z * c_bstride;
+
+  const int lr = tid / 4;        // loader: tile row
+  const int lk = (tid % 4) * 4;  // loader: 4 consecutive k
+  const int kr = col0 + lr;
+
+  // part[j]: this thread's sum, in row order, over rows ty + RS * i of
+  // every tile of the chunk, for candidate col0 + tx + CS * j
+  float part[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) part[j] = 0.f;
+
+  for (int row0 = row_begin; row0 < row_end; row0 += BM) {
+    __syncthreads();  // the previous tile's epilogue is done with cov_*
+    if (tid < BM) {
+      const int r = row0 + tid;
+      cov_a[tid] = r < row_end ? ca[r] : CUDART_INF_F;
+      if (DELTA) cov_b[tid] = r < row_end ? cb[r] : CUDART_INF_F;
+    }
+    const int qr = row0 + lr;
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+
+    for (int k0 = 0; k0 < d; k0 += BK) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = k0 + lk + e;
+        As[lk + e][lr] = (qr < row_end && k < d) ? z[(long long)qr * d + k] : 0.f;
+        Bs[lk + e][lr] = (kr < n_cand && k < d) ? zc[(long long)kr * d + k] : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < BK; ++kk) {
+        float a[TM], b[TN];
+#pragma unroll
+        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty + i * RS];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx + j * CS];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      __syncthreads();
+    }
+    if (d <= 0) __syncthreads();  // cov_* written above are visible below
+
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int lrow = ty + i * RS;
+      if (row0 + lrow >= row_end) continue;
+      const float c1 = cov_a[lrow];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) {
+        const float s = 0.5f + 0.5f * acc[i][j];
+        if (DELTA) {
+          part[j] += fmaxf(s - cov_b[lrow], 0.f) - fmaxf(s - c1, 0.f);
+        } else {
+          part[j] += fmaxf(s - c1, 0.f);
+        }
+      }
+    }
+  }
+
+  // the RS row partials of each candidate, added in ty order
+#pragma unroll
+  for (int j = 0; j < TN; ++j) red[ty][tx + j * CS] = part[j];
+  __syncthreads();
+  if (tid < BN) {
+    const int col = col0 + tid;
+    if (col < n_cand) {
+      float s = red[0][tid];
+#pragma unroll
+      for (int t = 1; t < RS; ++t) s += red[t][tid];
+      out[blockIdx.z * out_bstride + (long long)chunk * n_cand + col] = s;
+    }
+  }
+}
+
+// Gains over a materialised K: one thread per candidate column, rows of
+// the chunk in order.  grid = (ceil(n_cand / COLS), n_chunks, batch).
+__global__ void __launch_bounds__(COLS)
+dense_kernel(const float* __restrict__ K, long long k_bstride, long long ldk,
+             const float* __restrict__ c, long long c_bstride,
+             float* __restrict__ out, long long out_bstride, int n, int n_cand) {
+  __shared__ float cov[CHUNK];
+  const int chunk = blockIdx.y;
+  const int row_begin = chunk * CHUNK;
+  const int rows = min(n, row_begin + CHUNK) - row_begin;
+  c += blockIdx.z * c_bstride;
+  for (int r = threadIdx.x; r < rows; r += COLS) cov[r] = c[row_begin + r];
+  __syncthreads();
+  const int col = blockIdx.x * COLS + threadIdx.x;
+  if (col >= n_cand) return;
+  const float* kp = K + blockIdx.z * k_bstride + (long long)row_begin * ldk + col;
+  float s = 0.f;
+#pragma unroll 8
+  for (int r = 0; r < rows; ++r) s += fmaxf(kp[(long long)r * ldk] - cov[r], 0.f);
+  out[blockIdx.z * out_bstride + (long long)chunk * n_cand + col] = s;
+}
+
+// out[b, j] = sum over chunks, in chunk order, of partial[b, chunk, j].
+__global__ void reduce_chunks_kernel(const float* __restrict__ partial,
+                                     float* __restrict__ out, int n_chunks,
+                                     int n_cand) {
+  const int col = blockIdx.x * blockDim.x + threadIdx.x;
+  if (col >= n_cand) return;
+  const float* p = partial + (long long)blockIdx.y * n_chunks * n_cand + col;
+  float s = p[0];
+  for (int ch = 1; ch < n_chunks; ++ch) s += p[(long long)ch * n_cand];
+  out[(long long)blockIdx.y * n_cand + col] = s;
+}
+
+int n_chunks_of(int n) { return (n + CHUNK - 1) / CHUNK; }
+
+// With one chunk the first kernel writes `out`; else it writes `scratch`
+// (batch, n_chunks, n_cand) and the second pass reduces it into `out`.
+int finish(float* scratch, float* out, int n_chunks, int n_cand, int batch,
+           cudaStream_t stream) {
+  int err = static_cast<int>(cudaGetLastError());
+  if (err || n_chunks == 1) return err;
+  const dim3 grid((n_cand + 255) / 256, batch);
+  reduce_chunks_kernel<<<grid, 256, 0, stream>>>(scratch, out, n_chunks, n_cand);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DELTA>
+int launch_gram_free(const void* z, const void* zc, long long zc_bstride,
+                     const void* ca, const void* cb, long long c_bstride, void* out,
+                     void* scratch, int n, int n_cand, int d, int batch,
+                     void* stream) {
+  const int n_chunks = n_chunks_of(n);
+  auto s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(n_chunks == 1 ? out : scratch);
+  const dim3 grid((n_cand + BN - 1) / BN, n_chunks, batch);
+  gram_free_kernel<DELTA><<<grid, THREADS, 0, s>>>(
+      static_cast<const float*>(z), static_cast<const float*>(zc), zc_bstride,
+      static_cast<const float*>(ca), static_cast<const float*>(cb), c_bstride, dst,
+      (long long)n_chunks * n_cand, n, n_cand, d);
+  return finish(static_cast<float*>(scratch), static_cast<float*>(out), n_chunks,
+                n_cand, batch, s);
+}
+
+}  // namespace
+
+// Plain C entry points (bound with ctypes).  All tensors are fp32,
+// row-major and contiguous except K (row stride ldk, unit column stride);
+// a batch stride of 0 shares an operand across the batch.  `scratch` holds
+// batch * ceil(n / 256) * n_cand floats (unused when n <= 256).  Each
+// returns cudaGetLastError() right after its launches: 0 means accepted.
+// Requires n >= 1, n_cand >= 1, batch >= 1 (the wrapper handles empties).
+
+// B2: out[b, j] = sum_i relu(0.5 + 0.5 <z_i, zc[b, j]> - c[b, i]).
+extern "C" int fl_gains_gram_free_f32(const void* z, const void* zc,
+                                      long long zc_bstride, const void* c,
+                                      long long c_bstride, void* out, void* scratch,
+                                      int n, int n_cand, int d, int batch,
+                                      void* stream) {
+  return launch_gram_free<false>(z, zc, zc_bstride, c, nullptr, c_bstride, out,
+                                 scratch, n, n_cand, d, batch, stream);
+}
+
+// B3: out[j] = sum_i relu(K_ij - c_new_i) - relu(K_ij - c_old_i) over the
+// b touched rows z (b, d), K_ij = 0.5 + 0.5 <z_i, zc_j>.
+extern "C" int fl_gains_gram_free_delta_f32(const void* z, const void* zc,
+                                            const void* c_old, const void* c_new,
+                                            void* out, void* scratch, int b,
+                                            int n_cand, int d, void* stream) {
+  return launch_gram_free<true>(z, zc, 0, c_old, c_new, 0, out, scratch, b, n_cand,
+                                d, 1, stream);
+}
+
+// B4: out[b, j] = sum_i relu(K[b, i, j] - c[b, i]).
+extern "C" int fl_gains_f32(const void* K, long long k_bstride, long long ldk,
+                            const void* c, long long c_bstride, void* out,
+                            void* scratch, int n, int n_cand, int batch,
+                            void* stream) {
+  const int n_chunks = n_chunks_of(n);
+  auto s = static_cast<cudaStream_t>(stream);
+  float* dst = static_cast<float*>(n_chunks == 1 ? out : scratch);
+  const dim3 grid((n_cand + COLS - 1) / COLS, n_chunks, batch);
+  dense_kernel<<<grid, COLS, 0, s>>>(static_cast<const float*>(K), k_bstride, ldk,
+                                     static_cast<const float*>(c), c_bstride, dst,
+                                     (long long)n_chunks * n_cand, n, n_cand);
+  return finish(static_cast<float*>(scratch), static_cast<float*>(out), n_chunks,
+                n_cand, batch, s);
+}

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 _KEYS = ("w1", "b1", "w2", "b2", "w3", "b3")
 
 
@@ -22,9 +24,11 @@ def _init_dense(gen: torch.Generator, d_in: int, d_out: int) -> torch.Tensor:
 
 
 def init_mlp(generator: torch.Generator, d_in: int, n_classes: int, hidden: int = 64,
-             *, device: str | torch.device = "cpu") -> dict[str, torch.Tensor]:
+             *, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
     """The reference's initialisation (scaled normal weights, zero biases),
-    drawn from a CPU ``generator`` so it is the same on every device."""
+    drawn from a CPU ``generator`` so it is the same on every device, then
+    moved to ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     p = {
         "w1": _init_dense(generator, d_in, hidden), "b1": torch.zeros(hidden),
         "w2": _init_dense(generator, hidden, hidden), "b2": torch.zeros(hidden),

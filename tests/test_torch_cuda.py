@@ -90,3 +90,118 @@ def test_gram_blocked_kernel_route_matches_plain(cuda_device):
     torch.cuda.synchronize()
     np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=1e-4, atol=2e-4)
     assert not a[700:].any() and not a[:, 700:].any()
+
+
+# ---------------------------------------------------------------------------
+# the fl_gains family (csrc/fl_gains.cu) against its plain versions
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.fl_gains import fl_gains as fl_kernel  # noqa: E402
+from repro_torch.kernels.fl_gains import ops as fl_ops  # noqa: E402
+from repro_torch.kernels.fl_gains import ref as fl_ref  # noqa: E402
+
+# (n, n_cand, d): singletons, ragged tiles, odd depth, several 256-row chunks
+FL_SWEEP = [(1, 1, 8), (65, 130, 7), (300, 517, 48), (257, 1, 100), (1000, 333, 768),
+            (5000, 700, 100)]
+
+
+def _fl_tol(n_rows):
+    """fp32 sums of up to n_rows terms ≤ 1 in two orders (the kernel's
+    chunked fp32 sum, the plain version's float64 running sum), each term's
+    similarity from a different product order: rtol 1e-4 plus 2^-20 per row."""
+    return dict(rtol=1e-4, atol=max(1e-5, n_rows * 2.0**-20))
+
+
+def _fl_inputs(rng, n, n_cand, d, dev):
+    z = _rows(rng, n, d, True, dev, torch.float32)
+    zc = _rows(rng, n_cand, d, True, dev, torch.float32)
+    c = torch.from_numpy(rng.uniform(size=n).astype(np.float32)).to(dev)
+    c[torch.from_numpy(rng.random(n) < 0.2).to(dev)] = float("inf")
+    c_new = torch.maximum(c, torch.from_numpy(rng.uniform(size=n).astype(np.float32)).to(dev))
+    return z, zc, c, c_new
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_cand,d", FL_SWEEP)
+def test_fl_gains_kernels_match_plain(cuda_device, n, n_cand, d):
+    rng = np.random.default_rng(n * 7 + n_cand + d)
+    z, zc, c, c_new = _fl_inputs(rng, n, n_cand, d, cuda_device)
+    before = dict(fl_kernel.launches)
+    g = fl_ops.fl_gains_gram_free(z, zc, c)
+    dg = fl_ops.fl_gains_gram_free_delta(z, zc, c, c_new)
+    K = fl_ref._sim(z, zc)
+    gk = fl_ops.fl_gains(K, c)
+    torch.cuda.synchronize()
+    assert {k: fl_kernel.launches[k] - before[k] for k in before} == dict.fromkeys(before, 1)
+    tol = _fl_tol(n)
+    np.testing.assert_allclose(g.cpu().numpy(), fl_ref.fl_gains_gram_free_ref(z, zc, c).cpu().numpy(), **tol)
+    np.testing.assert_allclose(dg.cpu().numpy(),
+                               fl_ref.fl_gains_gram_free_delta_ref(z, zc, c, c_new).cpu().numpy(), **tol)
+    np.testing.assert_allclose(gk.cpu().numpy(), fl_ref.fl_gains_ref(K, c).cpu().numpy(), **tol)
+    assert not torch.isnan(dg).any() and (dg <= 0).all()
+
+
+@pytest.mark.cuda
+def test_fl_gains_kernels_order_properties(cuda_device):
+    """Bit-identity the engines rely on: repeated launches, gains_at against
+    gathered gains, the delta on a candidate slice against the full call,
+    trailing +inf rows (two-level gathers), and a batch against single runs."""
+    rng = np.random.default_rng(1)
+    z, _, c, c_new = _fl_inputs(rng, 700, 1, 40, cuda_device)
+    full = fl_ops.fl_gains_gram_free(z, z, c)
+    assert torch.equal(full, fl_ops.fl_gains_gram_free(z, z, c))
+    cand = torch.tensor([699, 0, 5, 5, 300, 64, 63], device=cuda_device)
+    assert torch.equal(fl_ops.fl_gains_gram_free(z, z[cand], c), full[cand])
+    rows = torch.arange(3, 700, 5, device=cuda_device)
+    d_full = fl_ops.fl_gains_gram_free_delta(z[rows], z, c[rows], c_new[rows])
+    assert torch.equal(fl_ops.fl_gains_gram_free_delta(z[rows], z[100:451], c[rows], c_new[rows]),
+                       d_full[100:451])
+    inf = torch.full((300,), float("inf"), device=cuda_device)
+    padded = fl_ops.fl_gains_gram_free_delta(torch.cat([z[rows], z[:300]]), z,
+                                             torch.cat([c[rows], inf]), torch.cat([c_new[rows], inf]))
+    assert torch.equal(padded, d_full)
+    covers = torch.stack([c, c_new])
+    batch_cand = torch.stack([cand, cand.flip(0)])
+    batched = fl_ops.fl_gains_gram_free(z, z[batch_cand], covers)
+    assert torch.equal(batched[1], fl_ops.fl_gains_gram_free(z, z[batch_cand[1]], c_new))
+    K = fl_ref._sim(z, z)
+    dense = fl_ops.fl_gains(K, c)
+    assert torch.equal(fl_ops.fl_gains(K[:, cand].contiguous(), c), dense[cand])
+    assert torch.equal(fl_ops.fl_gains(K[:, :300], c), dense[:300]), "a row-strided K"
+
+
+@pytest.mark.cuda
+def test_fl_gains_kernels_reject_bad_inputs(cuda_device):
+    z = torch.ones((8, 4), device=cuda_device)
+    c = torch.zeros(8, device=cuda_device)
+    with pytest.raises(TypeError):
+        fl_ops.fl_gains_gram_free(z.double(), z.double(), c.double())
+    with pytest.raises(ValueError):
+        fl_ops.fl_gains_gram_free(z, z.T, c)
+    with pytest.raises(ValueError):
+        fl_ops.fl_gains_gram_free_delta(z, z, c[:3], c[:3])
+    with pytest.raises(ValueError):
+        fl_ops.fl_gains(torch.ones((8, 8), device=cuda_device).T[:, :4], c)
+
+
+@pytest.mark.cuda
+def test_lazy_engine_on_the_card(cuda_device):
+    """The slice's engine on the card: two-level gathers are bit-identical,
+    verify_argmax is index-exact against eager greedy, and the unverified
+    cached gains follow eager greedy's gain sequence.  Their picks are not
+    demanded index-exact: the cache drifts by ulps of the first gain
+    (~500 here), enough to swap near-tied picks (rtol 1e-5 plus 4 such
+    ulps on the gains)."""
+    from repro_torch.core import greedy, gram_free
+
+    rng = np.random.default_rng(2)
+    z = _rows(rng, 1000, 64, True, cuda_device, torch.float32)
+    fn = gram_free.make_gram_free_facility_location(use_pallas=True)
+    eager = greedy.greedy(fn, z, 250)
+    a = greedy.lazy_greedy(fn, z, 250, budget=125)
+    b = greedy.lazy_greedy(fn, z, 250, budget=125, two_level=True)
+    v = greedy.lazy_greedy(fn, z, 250, budget=125, two_level=True, verify_argmax=True)
+    assert torch.equal(a.indices, b.indices) and torch.equal(a.gains, b.gains)
+    assert torch.equal(v.indices, eager.indices)
+    ulps = 4 * float(np.spacing(np.float32(eager.gains[0].item())))
+    np.testing.assert_allclose(a.gains.cpu().numpy(), eager.gains.cpu().numpy(), rtol=1e-5, atol=ulps)

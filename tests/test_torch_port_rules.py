@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.core.milo import MiloPreprocessor
+from repro_torch.models.classifier import init_mlp
 from repro_torch.selection import MiloSession, MiloSessionConfig, build_selector
 
 # the suite runs in parallel workers beside wall-clock-sensitive tests:
@@ -73,11 +74,13 @@ def test_default_device_raises_without_a_card():
         MiloSession()
     with pytest.raises(RuntimeError, match="cuda"):
         MiloPreprocessor()
+    with pytest.raises(RuntimeError, match="cuda"):
+        init_mlp(torch.Generator().manual_seed(0), 4, 2, 8)
+    assert init_mlp(torch.Generator().manual_seed(0), 4, 2, 8, device="cpu")["w1"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("gram_free", True), ("shard_selection", True), ("lazy_gains", True),
-    ("firewall", "repair"), ("partition", "random_blocks"), ("refine_factor", 2),
+    ("shard_selection", True), ("firewall", "repair"), ("partition", "random_blocks"), ("refine_factor", 2),
     ("fused_training", True), ("multihost_init", True), ("heartbeat_dir", "hb"),
     ("selector_fallback", ("adaptive_random",)),
 ])

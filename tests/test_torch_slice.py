@@ -49,19 +49,20 @@ def data():
     return ds.x[tr], ds.y[tr], ds.x[te], ds.y[te]
 
 
-def reference_sge_noise(labels, cfg):
+def reference_sge_noise(labels, cfg, bucketed=True):
     """The reference's per-class SGE draws: ``key, k_sge = split(key)`` per
     partition (``core/milo.py``), then ``split(k_sge, n_subsets)``, then
-    ``split(kk, k_run)``, then ``gumbel(keys[t], (n_run,))`` — in the bucketed
-    geometry (n_run, k_run) the reference runs each class at."""
+    ``split(kk, k_run)``, then ``gumbel(keys[t], (n_run,))`` — in the
+    geometry (n_run, k_run) the reference runs each class at (bucketed to
+    powers of two unless ``bucketed=False``)."""
     parts = ByClass().partition(labels, len(labels))
     budgets = proportional_budgets(parts, max(1, round(cfg.subset_fraction * len(labels))))
     key = jax.random.PRNGKey(cfg.resolved_prep_seed())
     noise = []
     for part, k_c in zip(parts, budgets):
         key, k_sge = jax.random.split(key)
-        n_run = _next_pow2(len(part.indices))
-        k_run = min(n_run, _next_pow2(k_c))
+        n_run = _next_pow2(len(part.indices)) if bucketed else len(part.indices)
+        k_run = min(n_run, _next_pow2(k_c)) if bucketed else k_c
 
         def run(kk, k_run=k_run, n_run=n_run):
             return jax.vmap(lambda kt: jax.random.gumbel(kt, (n_run,)))(jax.random.split(kk, k_run))
@@ -194,3 +195,140 @@ def test_train_reaches_reference_accuracy(sessions, data):
     assert rt.final_acc > 0.9, "the mixture is separable"
     evals = [h for h in rt.history if h.get("eval")]
     assert len(evals) == EPOCHS
+
+
+# ---------------------------------------------------------------------------
+# the gram-free route: facility-location importance under lazy gains
+# ---------------------------------------------------------------------------
+
+LAZY = dict(gram_free=True, use_pallas=True, hard_fn="facility_location", lazy_gains=True,
+            lazy_two_level=True)
+
+
+@pytest.fixture(scope="module")
+def lazy_sessions(data):
+    """The slice's path in both packages: the reference with its Pallas
+    kernels in interpret mode, the port on the CPU with the reference's
+    SGE draws injected."""
+    x, y, _, _ = data
+    js = jsel.MiloSession(total_epochs=EPOCHS, seed=SEED, **LAZY)
+    md_j = js.preprocess(x, y)
+    ts_ = tsel.MiloSession(total_epochs=EPOCHS, seed=SEED, device="cpu", **LAZY)
+    md_t = ts_.preprocess(x, y, sge_noise=reference_sge_noise(y, ts_.config))
+    return js, ts_, md_j, md_t
+
+
+def _assert_importance_per_lazy_rules(imp_t, imp_j, labels):
+    """Per class, over the first n_c/4 greedy picks (the shortlist horizon;
+    facility location is monotone submodular, so its greedy gains never
+    increase and importance ranks the picks in order): the port picks what
+    the reference picks, with its gains, until the first near-tie that the
+    cached gains cannot resolve — two elements whose reference gains lie
+    within the tolerance below at that step (the reference's pick's gain
+    and the port's pick's gain).  Past it the order may differ; the sorted
+    gain sequence must still match (the reference's full-pass check).
+
+    Tolerance: rtol 1e-5 plus 4 fp32 ulps of the class's first gain.  A
+    cached gain is that first gain corrected step by step, so it carries
+    absolute rounding of that size (on this mixture the first pick gains
+    ~190 and the later ones ~0.03)."""
+    for c in np.unique(labels):
+        it, ij = imp_t[labels == c], imp_j[labels == c]
+        atol = 4 * float(np.spacing(np.float32(ij.max())))
+        order_j = np.argsort(-ij, kind="stable")
+        order_t = np.argsort(-it, kind="stable")
+        top = len(ij) // 4
+        parted = np.nonzero(order_t[:top] != order_j[:top])[0]
+        exact = parted[0] if len(parted) else top
+        if exact < top:
+            a, b = order_j[exact], order_t[exact]
+            gap = abs(float(ij[a]) - float(it[b]))
+            assert gap <= atol + 1e-5 * abs(float(ij[a])), (
+                f"class {c}: pick {exact} is {b} (gain {it[b]}) where the reference "
+                f"picks {a} (gain {ij[a]}): a gap of {gap} > {atol}")
+        np.testing.assert_allclose(it[order_j[:exact]], ij[order_j[:exact]], rtol=1e-5, atol=atol)
+        np.testing.assert_allclose(np.sort(it), np.sort(ij), rtol=1e-4, atol=max(1e-5, atol))
+        assert (it > 0).all() and (ij > 0).all()
+
+
+def test_lazy_route_matches_reference(lazy_sessions, data):
+    _, y, _, _ = data
+    _, _, md_j, md_t = lazy_sessions
+    assert md_t.config == md_j.config and md_t.config_hash() == md_j.config_hash()
+    assert md_t.config["gram_free"] and md_t.config["lazy_gains"]
+    # the gram-free graph-cut bank: no kernel, injected draws, index-exact
+    diff = np.argwhere(md_t.sge_subsets != md_j.sge_subsets)
+    assert not len(diff), f"bank parts from the reference at (slot, position) {diff[0].tolist()}"
+    _assert_importance_per_lazy_rules(md_t.wre_importance, md_j.wre_importance, y)
+    np.testing.assert_allclose(np.sort(md_t.wre_probs), np.sort(md_j.wre_probs),
+                               rtol=1e-4, atol=1e-8)
+
+
+def test_lazy_route_two_level_is_bit_identical(lazy_sessions, data):
+    x, y, _, _ = data
+    _, ts_, _, md_t = lazy_sessions
+    one = tsel.MiloSession(total_epochs=EPOCHS, seed=SEED, device="cpu",
+                           **dict(LAZY, lazy_two_level=False))
+    md_1 = one.preprocess(x, y, sge_noise=reference_sge_noise(y, one.config))
+    np.testing.assert_array_equal(md_1.sge_subsets, md_t.sge_subsets)
+    np.testing.assert_array_equal(md_1.wre_importance, md_t.wre_importance)
+    np.testing.assert_array_equal(md_1.wre_probs, md_t.wre_probs)
+
+
+def test_lazy_route_artifacts_load_across_packages(lazy_sessions, data, tmp_path):
+    x, y, tx, ty = data
+    js, _, md_j, md_t = lazy_sessions
+    for src, load in ((md_j, TMeta.load), (md_t, JMeta.load)):
+        path = str(tmp_path / f"lazy_{type(src).__module__}.npz")
+        src.save(path)
+        back = load(path, expected_hash=src.config_hash())
+        assert back.config == src.config
+        np.testing.assert_array_equal(back.wre_importance, src.wre_importance)
+    # each package's session reuses the other's artifact through metadata_path
+    for md, make in ((md_j, lambda p: tsel.MiloSession(total_epochs=EPOCHS, seed=SEED,
+                                                       metadata_path=p, device="cpu", **LAZY)),
+                     (md_t, lambda p: jsel.MiloSession(total_epochs=EPOCHS, seed=SEED,
+                                                       metadata_path=p, **LAZY))):
+        path = str(tmp_path / f"shared_{type(md).__module__}.npz")
+        md.save(path)
+        reuse = make(path)
+        assert reuse.preprocess(x, y).config_hash() == md.config_hash()
+        assert reuse.loaded_from_artifact
+    # a session on another route refuses the artifact instead of reusing it
+    path = str(tmp_path / "shared_lazy.npz")
+    md_t.save(path)
+    with pytest.raises(tsession.MetadataMismatchError, match="lazy_gains"):
+        tsel.MiloSession(total_epochs=EPOCHS, seed=SEED, metadata_path=path, device="cpu",
+                         **dict(LAZY, lazy_gains=False)).preprocess(x, y)
+
+
+def test_lazy_route_trains(lazy_sessions, data):
+    x, y, tx, ty = data
+    _, ts_, _, _ = lazy_sessions
+    r = ts_.train(x, y, test_x=tx, test_y=ty)
+    assert r.steps == EPOCHS and r.final_acc > 0.9
+
+
+@pytest.mark.parametrize("bucketed", [True, False])
+def test_gram_free_paper_defaults_match_reference(data, bucketed):
+    """gram_free=True with the paper's functions (graph-cut bank,
+    disparity-min importance), with and without size bucketing."""
+    x, y, _, _ = data
+    cfg = dict(gram_free=True, use_pallas=True, bucket_classes=bucketed,
+               total_epochs=EPOCHS, seed=SEED)
+    md_j = jsel.MiloSession(**cfg).preprocess(x, y)
+    ts_ = tsel.MiloSession(device="cpu", **cfg)
+    noise = reference_sge_noise(y, ts_.config)
+    if not bucketed:
+        noise = reference_sge_noise(y, ts_.config, bucketed=False)
+    md_t = ts_.preprocess(x, y, sge_noise=noise)
+    assert md_t.config == md_j.config
+    diff = np.argwhere(md_t.sge_subsets != md_j.sge_subsets)
+    assert not len(diff), f"bank parts from the reference at (slot, position) {diff[0].tolist()}"
+    np.testing.assert_allclose(md_t.wre_importance, md_j.wre_importance, rtol=1e-5, atol=1e-6)
+
+
+def test_gram_free_refuses_non_cosine(data):
+    x, y, _, _ = data
+    with pytest.raises(ValueError, match="cosine"):
+        tsel.MiloSession(gram_free=True, metric="rbf", device="cpu").preprocess(x, y)
