@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-13 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -31,10 +31,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against single-level gathers, and ``verify_argmax`` against eager greedy.
 9. ``make_facility_location_pallas`` (the dense-Gram ``fl_gains`` kernel)
    against the plain facility location over class 0's Gram, greedy to 500.
+10. flash attention and the SSD chunk against their plain versions at the
+    serving path's shapes (yi-6b's and Jamba's heads at S 2048 and 1537,
+    cross-length, non-causal, one query; Jamba's chunk, a ragged scan, two
+    chunks composed), repeated launches bit-equal.
+11. their times beside their plain versions, their bounds and, for flash
+    attention, ``scaled_dot_product_attention`` as the library yardstick.
+12. the LM serving path on yi-6b at full width and depth (bf16, random
+    weights, ``attention_impl="pallas"``): ``ServeEngine(max_batch=4,
+    max_len=2304)`` serves 8 requests of 256-2048 prompt tokens, 32 new
+    tokens each; then, for request 0, decode on the kernel route against the
+    plain route's full forward, and the two routes' prefill logits.
+13. the same traffic on one period of Jamba's pattern (8 layers: 1 attention
+    and 7 Mamba, 4 MoE) at published widths with 8 of its 16 experts
+    (``ssm_impl="pallas"`` too); then the kernel route against the plain
+    route on request 0, with the tokens whose experts changed counted.
 
 Then one ``{"kernels": [...]}`` line (launches: each kernel's path —
 phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
-dense ``fl_gains`` kernel), the card's name and power limit, and, last,
+dense ``fl_gains`` kernel, 12 for flash attention, 13 for the SSD chunk),
+the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
@@ -736,10 +752,441 @@ def phase_fl_dense(dev, x, y, session) -> int:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path: flash attention (B5), the SSD chunk (B6), ServeEngine
+# ---------------------------------------------------------------------------
+
+def _heads_first(gen, b, s, h, d, dev, dtype) -> torch.Tensor:
+    """(B, H, S, D) as the model hands it over: a view of (B, S, H, D)."""
+    return torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype).transpose(1, 2)
+
+
+def flash_bound_ms(hq: int, hkv: int, sq: int, sk: int, d: int, causal: bool,
+                   dtype: torch.dtype) -> tuple[float, str]:
+    """Least time for one attention call: the two products' operations over
+    the kept (row, key) pairs at the peak for the input type, or bytes
+    (q, k, v read once, o written once)."""
+    off = sk - sq
+    pairs = sum(min(sk, i + off + 1) for i in range(sq)) if causal else sq * sk
+    flops = 4.0 * hq * d * pairs
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    nbytes = (2 * hq * sq + 2 * hkv * sk) * d * torch.tensor([], dtype=dtype).element_size()
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ssd_bound_ms(L: int, H: int, P: int, N: int) -> tuple[float, str]:
+    """Least time for one SSD chunk in f32: c·bᵀ (2L²N), the masked (L, L) by
+    (L, P) product of every head (L(L+1)·H·P), c·h_in and bᵀ·x (2·L·N·H·P
+    each); bytes: x, a, b, c, h_in read once, y and h_out written once."""
+    flops = 2.0 * L * L * N + L * (L + 1) * H * P + 4.0 * L * N * H * P
+    nbytes = 4.0 * (2 * L * H * P + L * H + 2 * L * N + 2 * H * N * P)
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def ssd_inputs(gen, B, S, H, P, N, dev):
+    """Decays in [0.6, 1) (as the reference's kernel tests draw them)."""
+    x = torch.randn((B, S, H, P), generator=gen, device=dev)
+    a = 0.6 + 0.4 * torch.rand((B, S, H), generator=gen, device=dev)
+    b = torch.randn((B, S, N), generator=gen, device=dev)
+    c = torch.randn((B, S, N), generator=gen, device=dev)
+    h = 0.1 * torch.randn((B, H, N, P), generator=gen, device=dev)
+    return x, a, b, c, h
+
+
+SSD_TOL = dict(rtol=1e-4, atol=1e-4)   # tests/test_ssd_kernel.py
+
+
+def phase_lm_kernel_checks(dev) -> dict[str, float]:
+    """Phase 10: B5 and B6 against their plain versions at the serving
+    path's shapes, and repeated launches bit-equal."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_scan_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_cuda
+
+    log("== phase 10: flash attention and the SSD chunk against their plain versions")
+    gen = torch.Generator(device=dev).manual_seed(10)
+    worst = {"flash_attention": 0.0, "ssd_chunk": 0.0}
+    cases = [(hq, hkv, s, s, True) for hq, hkv in ((32, 4), (64, 8)) for s in (2048, 1537)]
+    cases += [(32, 4, 300, 2048, True), (32, 4, 1537, 1537, False), (32, 4, 1, 2048, True),
+              (64, 8, 1, 1537, False)]
+    for hq, hkv, sq, sk, causal in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _heads_first(gen, 1, sq, hq, 128, dev, dtype)
+            k, v = (_heads_first(gen, 1, sk, hkv, 128, dev, dtype) for _ in range(2))
+            out = flash_attention_cuda(q, k, v, causal=causal)
+            ref = gqa_attention_ref(q, k, v, causal=causal).to(dtype)
+            err = _check(f"flash_attention Hq {hq} Hkv {hkv} Sq {sq} Sk {sk} causal={causal} "
+                         f"{str(dtype)[6:]}", out.float(), ref.float(), TOL[dtype])
+            worst["flash_attention"] = max(worst["flash_attention"], err)
+    _bit_equal("flash_attention: two launches", out, flash_attention_cuda(q, k, v, causal=causal))
+
+    L, H, P, N = 256, 256, 64, 128      # Jamba's chunk: d_inner 16,384 in 256 heads of 64
+    x, a, b, c, h = ssd_inputs(gen, 1, 2 * L, H, P, N, dev)
+    one = [t[:, :L] for t in (x, a, b, c)]
+    y, h1 = ssd_chunk_cuda(*one, h)
+    y_r, h_r = ssd_chunk_ref(*one, h)
+    for name, o, r in (("y", y, y_r), ("h_out", h1, h_r)):
+        err = _check(f"ssd_chunk (1, {L}, {H}, {P}), N {N}: {name}", o, r, SSD_TOL)
+        worst["ssd_chunk"] = max(worst["ssd_chunk"], err)
+    y2, h2 = ssd_chunk_cuda(*one, h)
+    _bit_equal("ssd_chunk: two launches (y)", y, y2)
+    _bit_equal("ssd_chunk: two launches (h_out)", h1, h2)
+    # two chunks through the kernel, the state carried by the kernel: against
+    # the same two chunks through the plain version, element by element, and
+    # against one double-length plain chunk.  The latter forms
+    # exp(cum_t - cum_s) from cums near -100 over 512 rows (an f32 ulp there
+    # is 7.6e-6), so its own error is ~1e-5 of the summed terms' scale, not
+    # of each element: it is held at 1e-4 of max |y| (and of max |h|)
+    ya, ha = ssd_chunk_cuda(*one, h)
+    yb, hb = ssd_chunk_cuda(*(t[:, L:] for t in (x, a, b, c)), ha)
+    ya_r, ha_r = ssd_chunk_ref(*one, h)
+    yb_r, hb_r = ssd_chunk_ref(*(t[:, L:] for t in (x, a, b, c)), ha_r)
+    _check("ssd_chunk: two chunks, state carried by the kernel, against the plain version's (y)",
+           torch.cat([ya, yb], dim=1), torch.cat([ya_r, yb_r], dim=1), SSD_TOL)
+    _check("ssd_chunk: two chunks, state carried by the kernel, against the plain version's (h)",
+           hb, hb_r, SSD_TOL)
+    y_full, h_full = ssd_chunk_ref(x, a, b, c, h)
+    for name, o, r in (("y", torch.cat([ya, yb], dim=1), y_full), ("h_out", hb, h_full)):
+        rel = _rel(o, r)
+        log(f"ssd_chunk: two chunks composed against one plain chunk of {2 * L} ({name}): "
+            f"max_abs_err {float((o - r).abs().max()):.3e}, {rel:.2e} of max |{name}| (bound 1e-4)")
+        assert rel < 1e-4, (name, rel)
+    # a ragged sequence: six whole chunks and one of a single row, masked in the kernel
+    xs, as_, bs, cs, _ = ssd_inputs(gen, 1, 1537, H, P, N, dev)
+    ys, hs = ssd_ops.ssd_scan(xs, as_, bs, cs, chunk=L)
+    ys_r, hs_r = ssd_scan_ref(xs, as_, bs, cs, chunk=L)
+    for name, o, r in (("y", ys, ys_r), ("final state", hs, hs_r)):
+        err = _check(f"ssd_scan S 1537 (a ragged last chunk): {name}", o, r, SSD_TOL)
+        worst["ssd_chunk"] = max(worst["ssd_chunk"], err)
+    return worst
+
+
+def phase_lm_kernel_timing(dev, smi: str) -> dict[str, dict]:
+    """Phase 11: each kernel at the serving path's shapes beside its plain
+    version, its bound and (flash attention) one PyTorch call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_cuda
+
+    log("== phase 11: flash attention and SSD chunk timing (CUDA events, mean of 20 after 3)")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    out: dict[str, dict] = {}
+    for label, hq, hkv, s in (("yi-6b", 32, 4, 2048), ("yi-6b", 32, 4, 1537),
+                              ("jamba", 64, 8, 2048)):
+        dtype = torch.bfloat16
+        q = _heads_first(gen, 1, s, hq, 128, dev, dtype)
+        k, v = (_heads_first(gen, 1, s, hkv, 128, dev, dtype) for _ in range(2))
+        ms = cuda_ms(lambda: flash_attention_cuda(q, k, v, causal=True))
+        plain = cuda_ms(lambda: gqa_attention_ref(q, k, v, causal=True).to(dtype), iters=5)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                             enable_gqa=True))
+        bound = flash_bound_ms(hq, hkv, s, s, 128, True, dtype)
+        log(f"flash_attention {label} (1, {hq}/{hkv}, {s}, 128) bf16 causal: kernel {ms:.4f} ms  "
+            f"plain {plain:.4f} ms  bound {bound[0]:.4f} ms ({bound[1]})  "
+            f"library scaled_dot_product_attention {lib:.4f} ms  [{smi}]")
+        out[f"flash_attention_{label}_{s}"] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0],
+                                                   bound_by=bound[1], library_ms=lib)
+    out["flash_attention"] = out["flash_attention_yi-6b_2048"]
+
+    L, H, P, N = 256, 256, 64, 128
+    x, a, b, c, h = ssd_inputs(gen, 1, L, H, P, N, dev)
+    ms = cuda_ms(lambda: ssd_chunk_cuda(x, a, b, c, h))
+    plain = cuda_ms(lambda: ssd_chunk_ref(x, a, b, c, h), iters=5)
+    bound = ssd_bound_ms(L, H, P, N)
+    log(f"ssd_chunk jamba (1, {L}, {H}, {P}), N {N}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+        f"bound {bound[0]:.4f} ms ({bound[1]})  library: none (no one PyTorch call)  [{smi}]")
+    out["ssd_chunk"] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
+                            library_ms=None)
+    return out
+
+
+def _reset_launches() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.similarity import similarity as sk
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
+
+    sk.launches = fa.launches = sc.launches = 0
+    for key in fk.launches:
+        fk.launches[key] = 0
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over max |b|: the reference's decode check
+    (tests/test_models.py:79), bound 0.02 in bf16."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-9)
+
+
+def serve_traffic(vocab: int, *, n: int, lo: int, hi: int) -> list[np.ndarray]:
+    """n prompts of lengths drawn from [lo, hi] (``default_rng(0)``), tokens
+    uniform over the vocabulary."""
+    lengths = np.random.default_rng(0).integers(lo, hi + 1, n)
+    rng = np.random.default_rng(1)
+    return [rng.integers(0, vocab, int(p)).astype(np.int64) for p in lengths]
+
+
+def phase_serve(dev, cfg, label: str, prompts, *, new_tokens: int, max_batch: int,
+                max_len: int, seed: int = 0) -> dict:
+    """Build ``cfg`` at random weights and serve ``prompts`` through
+    ``ServeEngine``: greedy, no EOS.  Prefill and decode steps are timed
+    with the card synchronised; the kernels' launches are counted over the
+    engine's run alone."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
+    from repro_torch.models import lm
+    from repro_torch.serve import lm_engine
+
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=seed, device=dev)
+    _sync(dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"{label}: {n_params / 1e9:.3f} B parameters ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts, {cfg.dtype}), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    eng = lm_engine.ServeEngine(model, cfg, max_batch=max_batch, max_len=max_len)
+    times = {"prefill": [], "decode": []}
+    originals = {"prefill": lm.prefill, "decode": lm.decode_step}
+
+    def timed(kind):
+        def run(*args, **kwargs):
+            _sync(dev)
+            t = time.perf_counter()
+            res = originals[kind](*args, **kwargs)
+            _sync(dev)
+            times[kind].append(time.perf_counter() - t)
+            return res
+        return run
+
+    for i, p in enumerate(prompts):
+        eng.submit(lm_engine.Request(i, p, max_new_tokens=new_tokens))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    lm.prefill, lm.decode_step = timed("prefill"), timed("decode")
+    _reset_launches()
+    try:
+        t0 = time.perf_counter()
+        done = eng.run()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        lm.prefill, lm.decode_step = originals["prefill"], originals["decode"]
+    launches = {"flash_attention": fa.launches, "ssd_chunk": sc.launches}
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    decoded = sum(len(r.generated) - 1 for r in done)
+    log(f"{label}: served {len(done)} requests (prompts {[len(p) for p in prompts]}, "
+        f"{new_tokens} new tokens each) in {wall:.3f} s wall")
+    log(f"  prefill per request (s): {[round(t, 4) for t in times['prefill']]}")
+    log(f"  decode steps: {len(times['decode'])}, median {np.median(times['decode']) * 1e3:.2f} ms, "
+        f"{decoded} tokens decoded in {sum(times['decode']):.3f} s = "
+        f"{decoded / sum(times['decode']):.1f} tokens/s")
+    log(f"  launches: flash_attention {launches['flash_attention']}, ssd_chunk "
+        f"{launches['ssd_chunk']}; max_memory_allocated "
+        f"{peak if peak is None else f'{peak / 2**30:.2f} GiB'}")
+    assert sorted(r.rid for r in done) == list(range(len(prompts)))
+    assert all(len(r.generated) == new_tokens for r in done), "every request got its tokens"
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.generated)
+    return dict(model=model, launches=launches, wall=wall, peak=peak, done=done,
+                prefill_s=times["prefill"], decode_s=times["decode"])
+
+
+def _greedy_run(model, cfg, prompt, steps: int, max_len: int, dev, feed=None):
+    """Prefill ``prompt`` then ``steps`` decode steps, feeding the greedy
+    tokens (or ``feed``).  Returns the prefill logits, the decode logits and
+    the fed tokens."""
+    from repro_torch.models import lm
+
+    caches = lm.init_caches(cfg, 1, max_len, dev)
+    logits, caches = lm.prefill(model, cfg, torch.as_tensor(prompt[None], device=dev), caches)
+    fed = [int(torch.argmax(logits[0, -1]))] if feed is None else list(feed[:1])
+    dec = []
+    for j in range(steps):
+        tok = torch.tensor([[fed[j]]], device=dev)
+        out, caches = lm.decode_step(model, cfg, tok, caches, len(prompt) + j)
+        dec.append(out[0, -1])
+        if feed is None:
+            fed.append(int(torch.argmax(out[0, -1])))
+        elif j + 1 < steps:
+            fed.append(feed[j + 1])
+    return logits[0], torch.stack(dec), fed[:steps]
+
+
+def phase_yi_checks(dev, cfg, model, prompt, *, max_len: int, steps: int = 8) -> None:
+    """yi-6b, request 0: decode on the kernel route against the plain
+    route's full forward (no cache), and the two routes' prefill logits."""
+    import dataclasses
+
+    from repro_torch.models import lm
+
+    plain = dataclasses.replace(cfg, attention_impl="naive")
+    pre_k, dec_k, fed = _greedy_run(model, cfg, prompt, steps, max_len, dev)
+    seq = torch.as_tensor(np.concatenate([prompt, fed]), device=dev)[None]
+    full, _ = lm.forward(model, plain, seq)
+    full = full[0]
+    P = len(prompt)
+    rels = [_rel(dec_k[j], full[P + j]) for j in range(steps)]
+    log(f"yi-6b decode (kernel route, {steps} steps after a {P}-token prefill) against the plain "
+        f"route's full forward: relative max error per step {[f'{r:.2e}' for r in rels]} "
+        "(bound 0.02)")
+    assert max(rels) < 0.02, rels
+    rel = _rel(pre_k, full[:P])
+    log(f"yi-6b prefill logits, kernel route against plain route: relative max error "
+        f"{rel:.2e} (bound 0.02, the same bf16 bound)")
+    assert rel < 0.02, rel
+
+
+def phase_jamba_routes(dev, cfg, model, prompt, *, max_len: int, steps: int = 8) -> None:
+    """Jamba, request 0: the kernel route (flash attention, the SSD kernel)
+    against the plain route (naive attention, the plain chunked scan).
+
+    Layer by layer on the same input — the kernel route's hidden state — the
+    two routes' mixer outputs must agree (bf16 bound 0.02, relative to the
+    output's scale).  End to end the two routes are also run on the same
+    prefill and the same fed decode tokens, and the tokens whose experts
+    changed are counted: a router that flips on a last-bit difference sends
+    a token to another expert, and with capacity dropping at prefill that
+    also moves other tokens' drops, so from the first flip on the two
+    routes' logits part by design (in the reference too).  Those logits are
+    reported, not held to a bound.
+    """
+    import dataclasses
+
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.attention import attention
+    from repro_torch.models.blocks import apply_block
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.ssm import mamba
+
+    plain = dataclasses.replace(cfg, attention_impl="naive", ssm_impl="chunked")
+    tokens = torch.as_tensor(prompt[None], device=dev)
+    P = tokens.shape[1]
+    positions = torch.arange(P, device=dev)[None]
+    rels = []
+    with torch.no_grad():
+        x = model.embed[tokens]
+        for block in model.blocks:
+            h = rms_norm(x, block.norm1, cfg.norm_eps)
+            if block.mixer_kind == "attn":
+                rope = dict(rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+                y_k, _ = attention(block.mixer, h, positions, impl=cfg.attention_impl, **rope)
+                y_p, _ = attention(block.mixer, h, positions, impl=plain.attention_impl, **rope)
+            else:
+                y_k, _ = mamba(block.mixer, h, chunk=cfg.ssm_chunk, impl=cfg.ssm_impl)
+                y_p, _ = mamba(block.mixer, h, chunk=cfg.ssm_chunk, impl=plain.ssm_impl)
+            rels.append(_rel(y_k, y_p))
+            x, _ = apply_block(block, x, cfg=cfg, positions=positions, cache=None, mode="train")
+    log(f"jamba request 0 ({P} tokens), layer by layer on the same input: mixer output, kernel "
+        f"route against plain route, relative max error {[f'{r:.2e}' for r in rels]} "
+        "(bound 0.02)")
+    assert max(rels) < 0.02, rels
+
+    routes: list = []
+    orig = moe_mod._router
+
+    def recording(params, xr, top_k):
+        topv, topi = orig(params, xr, top_k)
+        routes.append(topi.reshape(-1, top_k))
+        return topv, topi
+
+    moe_mod._router = recording
+    try:
+        pre_k, dec_k, fed = _greedy_run(model, cfg, prompt, steps, max_len, dev)
+        n_k = len(routes)
+        pre_p, dec_p, _ = _greedy_run(model, plain, prompt, steps, max_len, dev, feed=fed)
+    finally:
+        moe_mod._router = orig
+    rk, rp = routes[:n_k], routes[n_k:]
+    assert len(rk) == len(rp)
+    n_moe = sum(1 for _, f in cfg.pattern if f == "moe")
+    changed = torch.zeros(P, dtype=torch.bool, device=dev)
+    per_layer = []
+    for a, b in zip(rk[:n_moe], rp[:n_moe]):  # the prefill's MoE layers
+        diff = (a[:P] != b[:P]).any(dim=1)
+        per_layer.append(int(diff.sum()))
+        changed |= diff
+    dec_changed = sum(int((a != b).any()) for a, b in zip(rk[n_moe:], rp[n_moe:]))
+    first = int(torch.nonzero(changed)[0]) if bool(changed.any()) else P
+    log(f"  end to end ({steps} decode steps fed the same tokens): {int(changed.sum())} of {P} "
+        f"prompt tokens changed expert in some MoE layer (per MoE layer {per_layer}; the first "
+        f"at position {first}); {dec_changed} of {len(rk) - n_moe} decode-step MoE calls routed "
+        "differently")
+    log(f"  prefill logits: relative max error {_rel(pre_k, pre_p):.2e} over all positions, "
+        f"{_rel(pre_k[:first], pre_p[:first]) if first else 0.0:.2e} before the first change; "
+        f"decode logits per step {[f'{_rel(dec_k[j], dec_p[j]):.2e}' for j in range(steps)]} "
+        "(reported)")
+
+
+def phase_lm_serving(dev, *, rehearsal: bool) -> dict:
+    """Phases 12-13: yi-6b, then one Jamba period, through ``ServeEngine``.
+    The rehearsal runs both at ``registry.smoke`` size on the CPU."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import registry
+
+    yi = dataclasses.replace(registry.get("yi-6b"), attention_impl="pallas")
+    # one period of the pattern (1 attention + 7 Mamba layers, 4 MoE), 8 of
+    # the 16 experts: 25.3 B parameters, 50.6 GB in bf16 (16 would not fit)
+    jamba = dataclasses.replace(registry.get("jamba-1.5-large-398b"), num_layers=8,
+                                num_experts=8, attention_impl="pallas", ssm_impl="pallas")
+    traffic = dict(n=8, lo=256, hi=2048)
+    size = dict(new_tokens=32, max_batch=4, max_len=2304)
+    if rehearsal:
+        yi = dataclasses.replace(registry.smoke("yi-6b"), attention_impl="pallas")
+        jamba = dataclasses.replace(registry.smoke("jamba-1.5-large-398b"),
+                                    attention_impl="pallas", ssm_impl="pallas")
+        traffic = dict(n=8, lo=8, hi=40)
+        size = dict(new_tokens=6, max_batch=4, max_len=64)
+
+    log("== phase 12: yi-6b serving (ServeEngine, attention_impl='pallas')")
+    prompts = serve_traffic(yi.vocab_size, **traffic)
+    run = phase_serve(dev, yi, yi.name, prompts, **size)
+    if dev.type == "cuda":
+        assert run["launches"]["flash_attention"] == yi.num_layers * len(prompts), run["launches"]
+        assert run["launches"]["ssd_chunk"] == 0
+    phase_yi_checks(dev, yi, run["model"], prompts[0], max_len=size["max_len"])
+    flash_launches = run["launches"]["flash_attention"]
+    del run
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    log("== phase 13: Jamba serving, one period with 8 experts (attention and ssm 'pallas')")
+    prompts = serve_traffic(jamba.vocab_size, **traffic)
+    run = phase_serve(dev, jamba, jamba.name, prompts, **size)
+    n_mamba = sum(1 for m, _ in jamba.pattern if m == "mamba") * jamba.n_groups
+    expected = n_mamba * sum(-(-len(p) // jamba.ssm_chunk) for p in prompts)
+    log(f"  ssd_chunk launches expected: {n_mamba} Mamba layers x sum ceil(S/{jamba.ssm_chunk}) "
+        f"= {expected}; flash_attention expected {len(prompts)}")
+    if dev.type == "cuda":
+        assert run["launches"]["ssd_chunk"] == expected, run["launches"]
+        assert run["launches"]["flash_attention"] == len(prompts), run["launches"]
+    phase_jamba_routes(dev, jamba, run["model"], prompts[0], max_len=size["max_len"])
+    ssd_launches = run["launches"]["ssd_chunk"]
+    del run
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"flash_attention": flash_launches, "ssd_chunk": ssd_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5 and 6 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-13 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -758,6 +1205,7 @@ def main() -> int:
                                   main_run["ty"], epochs=12)
         phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
         phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
+        phase_lm_serving(dev, rehearsal=True)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -774,12 +1222,17 @@ def main() -> int:
                               epochs=12)
     phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
     dense_launches = phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
+    sim_launches, gf_launches = main_run["launches"], gf["launches"]
+    del main_run, gf
+    lm_err = phase_lm_kernel_checks(dev)
+    lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
+    serving = phase_lm_serving(dev, rehearsal=False)
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
         ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",
-         gf["launches"]["fl_gains_gram_free"], "(8192, 8192, 768)"),
+         gf_launches["fl_gains_gram_free"], "(8192, 8192, 768)"),
         ("fl_gains_gram_free_delta", "src/repro/kernels/fl_gains/fl_gains.py:133",
-         gf["launches"]["fl_gains_gram_free_delta"], "(8, 8192, 768): b = 8 touched rows"),
+         gf_launches["fl_gains_gram_free_delta"], "(8, 8192, 768): b = 8 touched rows"),
         ("fl_gains", "src/repro/kernels/fl_gains/fl_gains.py:52", dense_launches, "(8192, 8192)"),
     ]
     kernels = [{
@@ -787,7 +1240,7 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/csrc/similarity.cu",
         "replaces": "src/repro/kernels/similarity/similarity.py:39",
-        "launches": main_run["launches"],
+        "launches": sim_launches,
         "max_abs_err": err,
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
@@ -810,7 +1263,24 @@ def main() -> int:
         # fp32 product alone (torch.mm, TF32 off) is kept as a yardstick
         "product_ms": fl_timing[name]["product_ms"],
         "shape": shape,
-    } for name, replaces, launches, shape in fl_rows]
+    } for name, replaces, launches, shape in fl_rows] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"src/repro_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": serving[name],
+        "max_abs_err": lm_err[name],
+        "ms": lm_timing[name]["ms"],
+        "plain_ms": lm_timing[name]["plain_ms"],
+        "bound_ms": lm_timing[name]["bound_ms"],
+        "bound_by": lm_timing[name]["bound_by"],
+        "library_ms": lm_timing[name]["library_ms"],
+        "shape": shape,
+    } for name, replaces, shape in (
+        ("flash_attention", "src/repro/kernels/flash_attention/flash_attention.py:70",
+         "(1, 32/4, 2048, 128) bf16 causal (yi-6b); launches: phase 12, yi-6b serving"),
+        ("ssd_chunk", "src/repro/kernels/ssd_chunk/ssd_chunk.py:57",
+         "(1, 256, 256, 64), N 128 f32 (Jamba); launches: phase 13, Jamba serving"))]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(dev_info["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -12,7 +12,11 @@ tiles go through a hand-written CUDA kernel (``kernels/similarity``) when
 ``use_pallas=True``.  Also the gram-free route (``gram_free=True``: the set
 functions contract features, no Gram) with facility-location importance
 under lazy gains (``lazy_gains=True``), whose gains and lazy corrections go
-through the hand-written ``fl_gains`` kernels (``kernels/fl_gains``).
+through the hand-written ``fl_gains`` kernels (``kernels/fl_gains``).  And the
+LM serving path: ``serve.lm_engine.ServeEngine`` over ``models.lm`` (dense,
+MoE and Mamba blocks), whose prefill runs the hand-written flash-attention
+(``kernels/flash_attention``) and SSD chunk (``kernels/ssd_chunk``) kernels
+with ``attention_impl="pallas"`` and ``ssm_impl="pallas"``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise instead of carrying on elsewhere.

@@ -205,3 +205,99 @@ def test_lazy_engine_on_the_card(cuda_device):
     assert torch.equal(v.indices, eager.indices)
     ulps = 4 * float(np.spacing(np.float32(eager.gains[0].item())))
     np.testing.assert_allclose(a.gains.cpu().numpy(), eager.gains.cpu().numpy(), rtol=1e-5, atol=ulps)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (csrc/flash_attention.cu) and the SSD chunk
+# (csrc/ssd_chunk.cu) against their plain versions
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import gqa_attention_ref  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_chunk import ssd_chunk as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_scan_ref  # noqa: E402
+
+# tests/test_kernels.py's sweep, plus D = 128 at a ragged length and one
+# query row against a long cache with the model's head counts
+FA_SWEEP = [(1, 4, 4, 64, 64, 32), (2, 8, 2, 128, 128, 32), (2, 8, 2, 200, 200, 32),
+            (1, 4, 1, 64, 256, 64), (4, 8, 4, 1, 333, 32), (1, 32, 4, 301, 301, 128),
+            (1, 8, 1, 5, 130, 128)]
+
+
+def _qkv(rng, b, hq, hkv, sq, sk, d, dev, dtype):
+    return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev, dtype)
+            for s in ((b, hq, sq, d), (b, hkv, sk, d), (b, hkv, sk, d))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", FA_SWEEP)
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, d, dtype_name,
+                                              causal):
+    rng = np.random.default_rng(sq * 3 + sk + d)
+    q, k, v = _qkv(rng, b, hq, hkv, sq, sk, d, cuda_device, DTYPES[dtype_name])
+    before = fa_kernel.launches
+    out = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and out.dtype == q.dtype
+    ref = gqa_attention_ref(q, k, v, causal=causal).to(q.dtype)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype_name))
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal)), "repeat bit-equal"
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_strided_and_refusals(cuda_device):
+    rng = np.random.default_rng(0)
+    q, k, v = _qkv(rng, 2, 8, 2, 70, 70, 64, cuda_device, torch.bfloat16)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    out = fa_ops.flash_attention(*views)
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v))
+    assert out.transpose(1, 2).is_contiguous(), "the output is laid out like q"
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(*_qkv(rng, 1, 2, 2, 8, 8, 256, cuda_device, torch.float32))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(*_qkv(rng, 1, 2, 2, 9, 8, 16, cuda_device, torch.float32))
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), k.half(), v.half())
+
+
+def _ssd_inputs(rng, B, L, H, P, N, dev):
+    arrs = (rng.normal(size=(B, L, H, P)), rng.uniform(0.6, 1.0, size=(B, L, H)),
+            rng.normal(size=(B, L, N)), rng.normal(size=(B, L, N)),
+            rng.normal(size=(B, H, N, P)) * 0.1)
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N", [(1, 8, 4, 4, 4), (2, 16, 8, 8, 6), (1, 64, 16, 16, 16),
+                                       (1, 100, 6, 64, 128), (2, 256, 9, 33, 70)])
+def test_ssd_chunk_kernel_matches_plain(cuda_device, B, L, H, P, N):
+    rng = np.random.default_rng(L + H + P + N)
+    x, a, b, c, h = _ssd_inputs(rng, B, L, H, P, N, cuda_device)
+    before = ssd_kernel.launches
+    y, h_out = ssd_ops.ssd_chunk(x, a, b, c, h)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + 1
+    y_r, h_r = ssd_chunk_ref(x, a, b, c, h)
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h_out.cpu().numpy(), h_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    y2, h2 = ssd_ops.ssd_chunk(x, a, b, c, h)
+    assert torch.equal(y, y2) and torch.equal(h_out, h2), "repeat bit-equal"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,chunk", [(40, 8), (37, 16), (300, 64), (5, 8)])
+def test_ssd_scan_kernel_matches_plain(cuda_device, S, chunk):
+    rng = np.random.default_rng(S + chunk)
+    x, a, b, c, _ = _ssd_inputs(rng, 2, S, 8, 16, 12, cuda_device)
+    before = ssd_kernel.launches
+    y, h = ssd_ops.ssd_scan(x, a, b, c, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssd_kernel.launches == before + -(-S // chunk)
+    y_r, h_r = ssd_scan_ref(x, a, b, c, chunk=chunk)
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h.cpu().numpy(), h_r.cpu().numpy(), rtol=1e-4, atol=1e-4)

@@ -32,6 +32,17 @@ ds = GaussianMixtureDataset(n=300, n_classes=3, dim=16, seed=0)
 s = MiloSession(use_pallas=True, total_epochs=6, device="cpu")
 s.preprocess(ds.x, ds.y)
 r = s.train(ds.x, ds.y, test_x=ds.x, test_y=ds.y)
+import dataclasses
+from repro_torch.configs import registry
+from repro_torch.models import lm
+from repro_torch.serve.lm_engine import Request, ServeEngine
+
+cfg = dataclasses.replace(registry.smoke("jamba-1.5-large-398b"), attention_impl="pallas",
+                          ssm_impl="pallas")
+eng = ServeEngine(lm.init_lm(cfg, seed=0, device="cpu"), cfg, max_batch=2, max_len=16)
+for i in range(3):
+    eng.submit(Request(i, np.arange(3 + i, dtype=np.int32), max_new_tokens=4))
+assert sorted(len(r.generated) for r in eng.run()) == [4, 4, 4]
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print("LOADED", loaded, r.final_acc)
@@ -90,6 +101,55 @@ def test_unported_knobs_raise(knob, value):
     if knob in {f for f in MiloPreprocessor.__dataclass_fields__}:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MiloPreprocessor(device="cpu", **{knob: value})
+
+
+@pytest.mark.parametrize("case", ["attention_chunked", "mlstm", "slstm", "xattn", "attn_nc",
+                                  "encdec"])
+def test_unported_lm_paths_raise(case):
+    """Every model path the port does not have yet refuses, naming ROADMAP,
+    instead of quietly running something else."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import attention, blocks, lm
+
+    gen = torch.Generator().manual_seed(0)
+    if case == "attention_chunked":
+        cfg = dataclasses.replace(registry.smoke("yi-6b"), attention_impl="chunked")
+        model = lm.init_lm(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.forward(model, cfg, torch.zeros((1, 4), dtype=torch.long))
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            attention.attention(model.blocks[0].mixer, torch.zeros((1, 4, cfg.d_model)),
+                                torch.arange(4)[None], impl="chunked")
+    elif case == "encdec":
+        cfg = registry.smoke("whisper-small")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.init_lm(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            lm.forward(None, cfg, torch.zeros((1, 2), dtype=torch.long))
+    else:
+        cfg = registry.smoke("xlstm-125m" if case in ("mlstm", "slstm") else "llama-3.2-vision-90b")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            blocks.init_block(gen, cfg, case, "dense", torch.float32)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            blocks.init_block_cache(cfg, case, 1, 8, torch.float32, "cpu")
+        if case != "attn_nc":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                lm.init_lm(cfg, device="cpu")
+
+
+def test_lm_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cfg = registry.smoke("yi-6b")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_lm(cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        lm.init_caches(cfg, 1, 8)
 
 
 def test_configs_build_from_each_other():
