@@ -1,13 +1,19 @@
-"""Wrapper of the hand-written CUDA flash-attention kernel
+"""Wrapper of the hand-written CUDA flash-attention kernels
 (``csrc/flash_attention.cu``).
 
 Replaces the TPU kernel ``flash_attention_pallas`` (``repro/kernels/
 flash_attention/flash_attention.py``, body ``_flash_kernel``): causal GQA
 attention with an online softmax, the running max, denominator and output
 kept in f32, kv head ``h // group`` read in place (K and V never repeated).
-The kernel takes strides (unit stride on the head dim only), masks ragged
-query rows, keys and head dims itself, and writes the output with the same
-memory layout as q — so nothing is padded or transposed by a copy.
+
+Two dtype routes: bf16 runs the warp-specialised tensor-core kernel (``wgmma``
+for q·kᵀ and p·v, K/V through a TMA-fed ring in shared memory); f32 runs the
+CUDA-core kernel (an f32 input has no exact tensor-core route).  Both take
+strides with a unit stride on the head dim, mask ragged query rows, keys and
+head dims themselves, and write the output with the same memory layout as q.
+The bf16 kernel's TMA maps also need a 16-byte-aligned base, D % 8 == 0 and
+row, head and batch strides of 16-byte multiples (``tma_ready``); this
+wrapper refuses an input without them, and ``ops.flash_attention`` copies it.
 
 ``launches`` counts the kernel launches this wrapper made; set it to 0
 before a run to read how many that run made.
@@ -26,16 +32,28 @@ _ENTRY = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # q, k, v, o, strides[12], B, Hq, Hkv, Sq, Sk, D, causal, causal_offset, scale, stream
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P]
-D_MAX = 128            # csrc/flash_attention.cu D_MAX
+D_MAX = 128            # csrc/flash_attention.cu: the tiles hold D <= 128
+BQ_BF16 = 128          # query rows per block of the bf16 kernel (grid y counts them)
+TMA_ALIGN = 16         # bytes: TMA's base and stride alignment
 _INT_MAX = 2**31 - 1
 _GRID_Y = 65535
 
 
+def tma_ready(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's TMA map can address the 4-D view ``t`` in
+    place: a 16-byte-aligned base, a head dim of 16-byte multiples with unit
+    stride, and batch, head and row strides of 16-byte multiples."""
+    es = t.element_size()
+    return (t.data_ptr() % TMA_ALIGN == 0 and t.shape[3] * es % TMA_ALIGN == 0
+            and t.stride(3) == 1 and all(t.stride(i) * es % TMA_ALIGN == 0 for i in range(3)))
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool = True) -> torch.Tensor:
+                         causal: bool = True, scale: float | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream: q (B, Hq, Sq, D), k and v
     (B, Hkv, Sk, D), one dtype (f32 or bf16), any strides with a unit stride
-    on D.  Returns (B, Hq, Sq, D) in q's dtype, laid out in memory like q.
+    on D (bf16: see ``tma_ready``).  Returns (B, Hq, Sq, D) in q's dtype,
+    laid out in memory like q.  ``scale`` defaults to 1/√D.
 
     The causal mask is aligned to the end of the key axis
     (``causal_offset = Sk - Sq``), as in the reference's dispatch.
@@ -62,8 +80,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          "leaves rows with no key")
     if any(t.stride(3) != 1 for t in (q, k, v)) and d > 1:
         raise ValueError("flash_attention_cuda needs a unit stride on the head dim")
-    if max(sq, sk) > _INT_MAX or b * hq > _GRID_Y:
+    bf16 = q.dtype == torch.bfloat16
+    grid_y = -(-sq // BQ_BF16) if bf16 else b * hq
+    if max(sq, sk) > _INT_MAX or b * hq > _INT_MAX or grid_y > _GRID_Y:
         raise ValueError(f"shape (B·Hq {b * hq}, Sq {sq}, Sk {sk}) exceeds the kernel's grid")
+    if bf16 and sq and sk and not all(tma_ready(t) for t in (q, k, v)):
+        raise ValueError("the bf16 kernel's TMA maps need 16-byte-aligned q, k and v, D % 8 == 0 "
+                         "and row/head/batch strides of 8-element multiples; "
+                         "ops.flash_attention copies such inputs")
     out = torch.empty_like(q)  # q's memory layout: unit stride on D, as checked above
     if out.numel() == 0:
         return out
@@ -74,7 +98,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-                  b, hq, hkv, sq, sk, d, int(causal), sk - sq, 1.0 / (d ** 0.5), stream)
+                  b, hq, hkv, sq, sk, d, int(causal), sk - sq,
+                  1.0 / (d ** 0.5) if scale is None else scale, stream)
     _build.check(code, "flash attention kernel launch")
     launches += 1
     return out

@@ -2,16 +2,54 @@
 card, the plain version for a tensor on the CPU (or ``use_pallas=False``).
 
 Unlike the TPU dispatch (``repro/kernels/flash_attention/ops.py``) nothing
-is padded: the kernel masks ragged query rows, keys and head dims itself,
-and it reads strided q, k and v (so the model's (B, S, H, D) activations go
-in without a transpose copy).
+is padded on the model's path: the kernels mask ragged query rows, keys and
+head dims themselves, and read strided q, k and v (so the model's (B, S, H,
+D) activations go in without a transpose copy).  Only a bf16 input that the
+tensor-core kernel's TMA maps cannot address in place — a base off 16-byte
+alignment, a stride that is not a multiple of 8 elements, or D % 8 != 0 —
+is copied first: exactly, into a contiguous tensor, with D zero-padded to a
+multiple of 8 (zero columns add nothing to q·kᵀ, and the output's pad
+columns are sliced off).  ``copies`` counts those copies and each one is
+logged; the serving path makes none.
 """
 from __future__ import annotations
 
-import torch
+import logging
 
-from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.flash_attention import (
+    D_MAX,
+    flash_attention_cuda,
+    tma_ready,
+)
 from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+
+copies = 0
+_log = logging.getLogger(__name__)
+
+
+def tma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list[torch.Tensor]:
+    """q, k and v as the bf16 kernel's TMA maps take them: each one that is
+    not ``tma_ready`` (or all three, when D % 8 != 0: zero-padded to the next
+    multiple of 8) becomes an exact contiguous copy, counted and logged."""
+    global copies
+    d = q.shape[-1]
+    pad = -d % 8
+    out = []
+    for name, t in zip("qkv", (q, k, v)):
+        if not pad and tma_ready(t):
+            out.append(t)
+            continue
+        why = (f"head dim {d} padded to {d + pad}" if pad else
+               f"base {t.data_ptr() % 16} bytes off 16-byte alignment, strides {t.stride()}")
+        t = F.pad(t, (0, pad)) if pad else t.clone(memory_format=torch.contiguous_format)
+        copies += 1
+        _log.warning("flash_attention: copied %s %s for the bf16 kernel's TMA maps (%s)",
+                     name, tuple(t.shape), why)
+        out.append(t)
+    return out
 
 
 def flash_attention(
@@ -28,4 +66,9 @@ def flash_attention(
     version."""
     if not use_pallas or q.device.type == "cpu":
         return gqa_attention_ref(q, k, v, causal=causal).to(q.dtype)
+    d = q.shape[-1]
+    if (all(t.dtype == torch.bfloat16 and t.dim() == 4 for t in (q, k, v)) and d <= D_MAX
+            and min(q.numel(), k.numel()) > 0):
+        out = flash_attention_cuda(*tma_operands(q, k, v), causal=causal, scale=1.0 / d ** 0.5)
+        return out if out.shape[-1] == d else out[..., :d]
     return flash_attention_cuda(q, k, v, causal=causal)

@@ -220,10 +220,17 @@ from repro_torch.kernels.ssd_chunk import ssd_chunk as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_scan_ref  # noqa: E402
 
 # tests/test_kernels.py's sweep, plus D = 128 at a ragged length and one
-# query row against a long cache with the model's head counts
+# query row against a long cache with the model's head counts; then the bf16
+# kernel's tile edges (128 query rows, 128-key tiles, 64-column panels):
+# lengths on either side of one and two tiles, causal query blocks that start
+# mid key tile (Sk > Sq), and a head dim that is not a multiple of 8 (bf16:
+# zero-padded to 40 by three counted copies)
 FA_SWEEP = [(1, 4, 4, 64, 64, 32), (2, 8, 2, 128, 128, 32), (2, 8, 2, 200, 200, 32),
             (1, 4, 1, 64, 256, 64), (4, 8, 4, 1, 333, 32), (1, 32, 4, 301, 301, 128),
-            (1, 8, 1, 5, 130, 128)]
+            (1, 8, 1, 5, 130, 128),
+            (1, 4, 2, 127, 127, 64), (1, 4, 2, 128, 128, 128), (1, 4, 2, 129, 129, 128),
+            (2, 4, 1, 255, 255, 64), (1, 8, 2, 257, 257, 128), (1, 4, 2, 129, 257, 128),
+            (1, 8, 4, 200, 255, 64), (1, 4, 2, 100, 100, 36)]
 
 
 def _qkv(rng, b, hq, hkv, sq, sk, d, dev, dtype):
@@ -239,10 +246,13 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, d
                                               causal):
     rng = np.random.default_rng(sq * 3 + sk + d)
     q, k, v = _qkv(rng, b, hq, hkv, sq, sk, d, cuda_device, DTYPES[dtype_name])
-    before = fa_kernel.launches
+    before, copies = fa_kernel.launches, fa_ops.copies
     out = fa_ops.flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert fa_kernel.launches == before + 1 and out.dtype == q.dtype
+    assert tuple(out.shape) == (b, hq, sq, d)
+    padded = dtype_name == "bfloat16" and d % 8
+    assert fa_ops.copies == copies + (3 if padded else 0), "only a padded head dim copies"
     ref = gqa_attention_ref(q, k, v, causal=causal).to(q.dtype)
     np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
                                **_tol(dtype_name))
@@ -263,6 +273,29 @@ def test_flash_attention_kernel_strided_and_refusals(cuda_device):
         fa_ops.flash_attention(*_qkv(rng, 1, 2, 2, 9, 8, 16, cuda_device, torch.float32))
     with pytest.raises(TypeError):
         fa_ops.flash_attention(q.half(), k.half(), v.half())
+
+
+@pytest.mark.cuda
+def test_flash_attention_kernel_copies_views_tma_cannot_take(cuda_device):
+    """A bf16 view whose base is off 16-byte alignment goes through one
+    counted contiguous copy and still launches the kernel; the kernel itself
+    refuses it."""
+    rng = np.random.default_rng(1)
+    q, k, v = _qkv(rng, 2, 4, 2, 70, 70, 64, cuda_device, torch.bfloat16)
+    flat = torch.empty(1 + q.numel(), dtype=torch.bfloat16, device=cuda_device)
+    qu = flat[1:].view(q.shape)
+    qu.copy_(q)
+    assert qu.data_ptr() % 16 and not fa_kernel.tma_ready(qu)
+    before, copies = fa_kernel.launches, fa_ops.copies
+    out = fa_ops.flash_attention(qu, k, v)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and fa_ops.copies == copies + 1
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v)), "the copy is exact"
+    ref = gqa_attention_ref(q, k, v).to(torch.bfloat16)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol("bfloat16"))
+    with pytest.raises(ValueError):
+        fa_kernel.flash_attention_cuda(qu, k, v)
 
 
 def _ssd_inputs(rng, B, L, H, P, N, dev):
