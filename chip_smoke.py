@@ -11,10 +11,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    directory, with the ``-Xptxas -v`` register/shared-memory report.
 3. each kernel against its plain version at the main path's shapes (and,
    for the ``fl_gains`` family, at ragged shapes and for the bit-identity
-   properties the engines rely on).
+   properties the engines rely on); the similarity kernel's rows against
+   the gram-free kernel's tile values, bit for bit.
 4. each kernel's time (CUDA events) beside its plain version, one PyTorch
    library call (or, for the fused gram-free kernels, the fp32 product
-   alone as a yardstick) and the card's bound.
+   alone as a yardstick) and the card's bound; the lazy delta also on the
+   card alone (calls queued behind a spin kernel), warm and cold (L2
+   flushed before each call), beside its tiled instance (the kernel the
+   small-b one replaced) on both measures.
 5. MILO's main path at full width through ``MiloSession(use_pallas=True)``:
    CIFAR-10's geometry (50,000 training rows in 10 classes, 10,000 test
    rows, d = 768, the ViT-B embedding width), preprocess with the paper's
@@ -26,7 +30,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    use_pallas=True, hard_fn="facility_location", lazy_gains=True,
    lazy_two_level=True)`` — no Gram; facility-location importance through
    the lazy engine and the ``fl_gains`` kernels; stage times, launches,
-   full recomputes, rows gathered per lazy step, peak memory, accuracy.
+   full recomputes, rows gathered per lazy step, the delta's gather sizes
+   and launches per instance, peak memory, accuracy.
 8. on class 0 of that path: kernel route against plain route, two-level
    against single-level gathers, and ``verify_argmax`` against eager greedy.
 9. ``make_facility_location_pallas`` (the dense-Gram ``fl_gains`` kernel)
@@ -50,7 +55,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (``ssm_impl="pallas"`` too); then the kernel route against the plain
     route on request 0, with the tokens whose experts changed counted.
 
-Then one ``{"kernels": [...]}`` line (launches: each kernel's path —
+Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
+redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
 phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
 dense ``fl_gains`` kernel, 12 for flash attention, 13 for the SSD chunk),
 the card's name and power limit, and, last,
@@ -59,6 +65,7 @@ the card's name and power limit, and, last,
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import re
@@ -97,6 +104,57 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+_SPIN: dict[str, float] = {}
+
+
+def _spin_cycles_per_ms() -> float:
+    """Clock cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    if "per_ms" not in _SPIN:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(10_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["per_ms"] = 10_000_000 / start.elapsed_time(end)
+    return _SPIN["per_ms"]
+
+
+def queued_ms(fn, iters: int = 20, warmup: int = 3, flush: torch.Tensor | None = None) -> float:
+    """Mean time of one call of ``fn`` on the card alone: the calls are
+    issued behind a spin kernel that outlasts their issue, so they run back
+    to back on the card, each between its own pair of events.  ``cuda_ms``
+    times calls as they are issued, so a kernel shorter than its wrapper's
+    Python is timed there at the host's rate; this one is not.  With
+    ``flush`` (a buffer larger than the 50 MB L2) the buffer is written
+    before each call: the cold time."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    issue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    spin = 2 * iters * issue_ms + 2.0
+    for _ in range(4):
+        pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        torch.cuda._sleep(int(_spin_cycles_per_ms() * spin))
+        for start, end in pairs:
+            if flush is not None:
+                flush.zero_()
+            start.record()
+            fn()
+            end.record()
+        covered = not torch.cuda.current_stream().query()  # the spin still runs
+        torch.cuda.synchronize()
+        if covered:
+            return sum(start.elapsed_time(end) for start, end in pairs) / iters
+        spin *= 4
+    raise RuntimeError("the spin kernel ended before the timed calls were issued")
 
 
 def rows(gen: torch.Generator, m: int, d: int, dev, dtype, normalized: bool) -> torch.Tensor:
@@ -195,13 +253,29 @@ def ptxas_stats(report: str, entry: str) -> dict:
             "spill_load_bytes": int(m.group(2))}
 
 
+def ptxas_instances(report: str, instances: dict[str, str]) -> dict[str, dict]:
+    """``ptxas_stats`` of each template instance, by label: ``instances``
+    maps a label to a substring of the instance's mangled name."""
+    return {label: ptxas_stats(report, entry) for label, entry in instances.items()}
+
+
+# the mangled names of the redesigned kernels' instances
+SIMILARITY_INSTANCES = {
+    "f32 normalized": "similarity_kernelIfLb1EE", "f32": "similarity_kernelIfLb0EE",
+    "bf16 normalized": "similarity_kernelI13__nv_bfloat16Lb1EE",
+    "bf16": "similarity_kernelI13__nv_bfloat16Lb0EE"}
+SMALL_B_INSTANCES = {f"b<={bp}": f"delta_small_b_kernelILi{bp}EE" for bp in (1, 2, 4, 8, 16, 32, 64)}
+
+
 def phase_kernel_checks(dev) -> float:
+    from repro_torch.kernels.fl_gains.fl_gains import fl_gains_gram_free_cuda
     from repro_torch.kernels.similarity.ref import similarity_ref
     from repro_torch.kernels.similarity.similarity import similarity_cuda
 
     log("== phase 3: kernel against plain version")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = 0.0
+    zero = torch.zeros((1,), device=dev)
     for mq, mk, d in ((2048, 5000, 768), (904, 5000, 768)):
         for dtype in (torch.float32, torch.bfloat16):
             for normalized in (True, False):
@@ -218,6 +292,15 @@ def phase_kernel_checks(dev) -> float:
                     raise AssertionError(f"similarity kernel disagrees with its plain version "
                                          f"at ({mq}, {mk}, {d}) {dtype} normalized={normalized}")
                 worst = max(worst, err)
+                if dtype == torch.float32 and normalized:
+                    # B1 and B2 build each similarity as one fmaf chain in k
+                    # order: with one ground row at cover 0 the gram-free
+                    # kernel returns that row's tile values themselves
+                    picked = sorted({0, 1, mq // 2, mq - 1})
+                    tiles = torch.stack([fl_gains_gram_free_cuda(zq[i:i + 1], zk, zero)
+                                         for i in picked])
+                    _bit_equal(f"similarity ({mq}, {mk}, {d}) f32 normalized: rows {picked} "
+                               "against the gram-free kernel's tile values", out[picked], tiles)
     return worst
 
 
@@ -382,14 +465,50 @@ def phase_fl_kernel_timing(dev, smi: str) -> dict[str, dict]:
     prod = cuda_ms(lambda: torch.mm(z, z.T))
     out["fl_gains_gram_free"] = report("fl_gains_gram_free", f"({n}, {n}, {d})", ms, plain,
                                        fl_bound_ms("fl_gains_gram_free", n, n, d), prod)
+    # the delta, timed as every kernel is (``cuda_ms``: issued back to back
+    # from Python) and on the card alone (``queued_ms``): warm (zc in L2, as
+    # in the lazy loop) and cold (a 64 MB write before each call evicts zc
+    # from the 50 MB L2: the bound counts zc's bytes from memory).  At
+    # b <= 64 also the tiled instance, the kernel the small-b one replaced,
+    # reached by a z that is not 16-byte aligned, on both measures
+    flush = torch.empty(64 * 2**20 // 4, device=dev)
+
+    def instance(*args) -> str:
+        before = dict(fk.delta_launches)
+        fk.fl_gains_gram_free_delta_cuda(*args)
+        return next(k for k in before if fk.delta_launches[k] > before[k])
+
     for b in (1, 8, 64, 1024):
         rsel = torch.randperm(5000, generator=gen, device=dev)[:b]
         args = (z[rsel].contiguous(), z, c[rsel].contiguous(), c_new[rsel].contiguous())
         ms = cuda_ms(lambda: fk.fl_gains_gram_free_delta_cuda(*args))
+        alone = queued_ms(lambda: fk.fl_gains_gram_free_delta_cuda(*args))
+        cold = queued_ms(lambda: fk.fl_gains_gram_free_delta_cuda(*args), flush=flush)
         plain = cuda_ms(lambda: fr.fl_gains_gram_free_delta_ref(*args), iters=5)
         prod = cuda_ms(lambda: torch.mm(args[0], z.T))
-        row = report("fl_gains_gram_free_delta", f"b={b} ({b}, {n}, {d})", ms, plain,
-                     fl_bound_ms("fl_gains_gram_free_delta", b, n, d), prod)
+        bound = fl_bound_ms("fl_gains_gram_free_delta", b, n, d)
+        inst = instance(*args)
+        row = report("fl_gains_gram_free_delta", f"b={b} ({b}, {n}, {d}) [{inst}]", ms, plain,
+                     bound, prod)
+        row.update(instance=inst, alone_ms=alone, cold_ms=cold)
+        log(f"  on the card alone: warm {alone:.4f} ms ({bound[0] / alone:.1%} of the bound; zc "
+            f"is 25 MB and stays in the 50 MB L2, so a warm time may beat the bound of its bytes "
+            f"from memory), cold (L2 flushed) {cold:.4f} ms ({bound[0] / cold:.1%})")
+        if inst == "small_b":
+            buf = torch.empty(args[0].numel() + 1, device=dev)
+            z_off = buf[1:].view(args[0].shape)
+            z_off.copy_(args[0])
+            targs = (z_off,) + args[1:]
+            assert instance(*targs) == "tiled"
+            _bit_equal(f"delta b={b}: small-b against tiled instance",
+                       fk.fl_gains_gram_free_delta_cuda(*args),
+                       fk.fl_gains_gram_free_delta_cuda(*targs))
+            tiled = dict(ms=cuda_ms(lambda: fk.fl_gains_gram_free_delta_cuda(*targs)),
+                         alone_ms=queued_ms(lambda: fk.fl_gains_gram_free_delta_cuda(*targs)))
+            row["tiled"] = tiled
+            log(f"  tiled instance (the kernel the small-b one replaced): {tiled['ms']:.4f} ms, "
+                f"on the card alone {tiled['alone_ms']:.4f} ms; small-b "
+                f"{tiled['ms'] / ms:.2f}x / {tiled['alone_ms'] / alone:.2f}x faster")
         out[f"fl_gains_gram_free_delta_b{b}"] = row
     out["fl_gains_gram_free_delta"] = out["fl_gains_gram_free_delta_b8"]
     K = fr._sim(z, z)
@@ -417,6 +536,7 @@ def phase_main_path(dev, *, n: int, n_classes: int, dim: int, epochs: int) -> di
     from repro_torch.core import milo as milo_mod
     from repro_torch.core.metadata import MiloMetadata
     from repro_torch.data.datasets import GaussianMixtureDataset
+    from repro_torch.kernels.similarity import ops as sim_ops
     from repro_torch.kernels.similarity import similarity as sim_kernel
     from repro_torch.selection import MiloSession
 
@@ -444,6 +564,7 @@ def phase_main_path(dev, *, n: int, n_classes: int, dim: int, epochs: int) -> di
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     sim_kernel.launches = 0
+    sim_ops.copies = 0
     try:
         t0 = time.perf_counter()
         md = session.preprocess(x, y)
@@ -462,7 +583,8 @@ def phase_main_path(dev, *, n: int, n_classes: int, dim: int, epochs: int) -> di
     log(f"train {t_train:.3f} s ({report.train_time:.3f} s timed loop, {report.steps} steps), "
         f"final test accuracy {report.final_acc:.4f}")
     log(f"similarity launches on the main path: {launches} "
-        f"(expected sum_c ceil(n_c/{block}) = {expected})")
+        f"(expected sum_c ceil(n_c/{block}) = {expected}); copies for the kernel's "
+        f"asynchronous copies {sim_ops.copies}")
     log(f"max_memory_allocated: {peak if peak is None else f'{peak / 2**20:.1f} MiB'}")
 
     k = md.k
@@ -472,6 +594,7 @@ def phase_main_path(dev, *, n: int, n_classes: int, dim: int, epochs: int) -> di
     assert np.isfinite(md.wre_importance).all() and np.isfinite(md.wre_probs).all()
     assert (md.wre_probs >= 0).all() and abs(float(md.wre_probs.sum()) - 1.0) < 1e-4
     assert report.final_acc >= 0.5, f"test accuracy {report.final_acc} is near chance"
+    assert sim_ops.copies == 0, "the main path hands the similarity kernel rows it takes in place"
     if dev.type == "cuda":
         assert launches == expected, f"{launches} similarity launches, expected {expected}"
     with tempfile.TemporaryDirectory() as tmp:
@@ -488,6 +611,7 @@ def phase_routes(dev, x: np.ndarray, y: np.ndarray, session) -> None:
     from repro_torch.core import greedy, submodular
     from repro_torch.core.milo import _next_pow2
     from repro_torch.core.similarity import gram_matrix_blocked
+    from repro_torch.kernels.similarity import ops as sim_ops
 
     log("== phase 6: kernel route against plain route on class 0")
     cfg = session.config
@@ -497,10 +621,13 @@ def phase_routes(dev, x: np.ndarray, y: np.ndarray, session) -> None:
     n_pad = _next_pow2(n_c)
     k_run = min(n_pad, _next_pow2(k_c))
     z = torch.as_tensor(feats, device=dev)
+    copies = sim_ops.copies
     A_k = gram_matrix_blocked(z, block=cfg.gram_block, use_pallas=True, n_pad=n_pad)
     A_p = gram_matrix_blocked(z, block=cfg.gram_block, use_pallas=False, n_pad=n_pad)
     err = float((A_k - A_p).abs().max())
-    log(f"gram ({n_c} rows, padded to {n_pad}): max_abs_err {err:.3e}")
+    log(f"gram ({n_c} rows, padded to {n_pad}): max_abs_err {err:.3e}, "
+        f"{sim_ops.copies - copies} copies")
+    assert sim_ops.copies == copies, "the Gram's tiles need no copy"
     assert torch.allclose(A_k, A_p, **TOL[torch.float32]), "Gram routes disagree"
 
     valid = torch.arange(n_pad, device=dev) < n_c
@@ -570,6 +697,8 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     for k in fk.launches:
         fk.launches[k] = 0
+    for k in fk.delta_launches:
+        fk.delta_launches[k] = 0
     sim_kernel.launches = 0
     try:
         t0 = time.perf_counter()
@@ -580,6 +709,7 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
             setattr(milo_mod, attr, fn)
         greedy_mod.lazy_greedy = lazy_orig
     launches = dict(fk.launches)
+    instances = dict(fk.delta_launches)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     t0 = time.perf_counter()
     report = session.train(x, y, test_x=tx, test_y=ty)
@@ -603,6 +733,11 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         f"max {int(lazy_rows.max()) if len(lazy_rows) else 0}, {len(lazy_rows)} lazy steps")
     log(f"max_memory_allocated (preprocess): "
         f"{peak if peak is None else f'{peak / 2**20:.1f} MiB'}")
+    # a lazy step's rows_evaluated is its gathered block's size: the delta's b
+    sizes, counts = torch.unique(lazy_rows.long(), return_counts=True)
+    gathers = dict(zip(sizes.tolist(), counts.tolist()))
+    log(f"fl_gains_gram_free_delta gather sizes b (b: calls): {gathers}")
+    log(f"fl_gains_gram_free_delta launches per instance: {instances}")
 
     k = md.k
     assert len(runs) == n_classes, f"{len(runs)} lazy passes for {n_classes} classes"
@@ -617,6 +752,8 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         assert launches["fl_gains_gram_free"] >= n_classes + sum(full), launches
         assert launches["fl_gains_gram_free_delta"] >= n_classes, launches
         assert launches["fl_gains_gram_free_delta"] == len(lazy_rows), launches
+        assert sum(instances.values()) == launches["fl_gains_gram_free_delta"], instances
+        assert instances["small_b"] > instances["tiled"] > 0, "both instances run, small-b most"
         per_class = [(d["fl_gains_gram_free"], d["fl_gains_gram_free_delta"]) for _, _, d in runs]
         log(f"(fl_gains_gram_free, fl_gains_gram_free_delta) launches per class: {per_class}")
         assert all(b2 >= 1 and b3 >= 1 for b2, b3 in per_class), per_class
@@ -629,7 +766,7 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
                             **GRAM_FREE_PATH)
         assert reuse.preprocess(x, y).config_hash() == md.config_hash() and reuse.loaded_from_artifact
     log(f"artifact round trip: config_hash {md.config_hash()} reloads equal and is reused")
-    return dict(launches=launches, session=session, md=md)
+    return dict(launches=launches, session=session, md=md, instances=instances, gathers=gathers)
 
 
 def _class0(x, y, session, dev):
@@ -1260,6 +1397,7 @@ def main() -> int:
     phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
     dense_launches = phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
     sim_launches, gf_launches = main_run["launches"], gf["launches"]
+    delta_instances, gathers = gf["instances"], gf["gathers"]
     del main_run, gf
     lm_err = phase_lm_kernel_checks(dev)
     lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
@@ -1319,6 +1457,34 @@ def main() -> int:
         ("ssd_chunk", "src/repro/kernels/ssd_chunk/ssd_chunk.py:57",
          "(1, 256, 256, 64), N 128 f32 (Jamba); launches: phase 13, Jamba serving"))]
     from repro_torch.kernels import _build
+
+    # the redesigned kernels' registers, spills and dynamic shared memory,
+    # and the delta's per-size times and per-instance launches
+    sim = kernels[0]
+    sim["ptxas"] = ptxas_instances(report, SIMILARITY_INSTANCES)
+    smem = _build.function("similarity_smem_bytes", [ctypes.c_int])
+    sim["dynamic_smem_bytes"] = {"f32": smem(0), "bf16": smem(1)}
+    delta = next(k for k in kernels if k["name"] == "fl_gains_gram_free_delta")
+    delta["alone_ms"] = fl_timing["fl_gains_gram_free_delta"]["alone_ms"]
+    delta["cold_ms"] = fl_timing["fl_gains_gram_free_delta"]["cold_ms"]
+    delta["times"] = {f"b{b}": {key: fl_timing[f"fl_gains_gram_free_delta_b{b}"][key]
+                                for key in ("instance", "ms", "alone_ms", "cold_ms", "bound_ms",
+                                            "bound_by", "plain_ms", "tiled")
+                                if key in fl_timing[f"fl_gains_gram_free_delta_b{b}"]}
+                      for b in (1, 8, 64, 1024)}
+    delta["instances"] = {
+        "small_b": {"launches": delta_instances["small_b"],
+                    "ptxas": ptxas_instances(report, SMALL_B_INSTANCES),
+                    "dynamic_smem_bytes": _build.function(
+                        "fl_gains_gram_free_delta_small_b_smem_bytes", [])()},
+        "tiled": {"launches": delta_instances["tiled"],
+                  "ptxas": ptxas_stats(report, "gram_free_kernelILb1EE")}}
+    delta["gather_sizes"] = {str(b): n for b, n in gathers.items()}
+    spills = [v for k in (sim["ptxas"], delta["instances"]["small_b"]["ptxas"]) for v in k.values()]
+    log(f"similarity: {sim['ptxas']}, dynamic shared memory {sim['dynamic_smem_bytes']} bytes")
+    log(f"fl_gains_gram_free_delta small-b: {delta['instances']['small_b']['ptxas']}, dynamic "
+        f"shared memory up to {delta['instances']['small_b']['dynamic_smem_bytes']} bytes")
+    assert all(v["spill_store_bytes"] == v["spill_load_bytes"] == 0 for v in spills), spills
 
     flash = next(k for k in kernels if k["name"] == "flash_attention")
     flash.update(ptxas_stats(report, "flash_wgmma_kernel"))

@@ -40,12 +40,43 @@
 //     above (~0.19 ms at b = 1024);
 //   gains over a materialised (8192, 8192) K: 268 MB read -> bound by bytes
 //     (~80 us).
-// This first version is simple and right: a 64 x 64 (rows x candidates)
-// tile per step with both operands staged through shared memory in 16-deep
-// slabs, as in the similarity kernel.  Making it fast (wgmma with 3xTF32,
-// TMA-fed pipelines) is later work.
+//
+// Two designs.  The tiled kernel (B2, and B3 above b = 64): a 64 x 64
+// (rows x candidates) tile per step with both operands staged through
+// shared memory in 16-deep slabs.  The small-b instance of B3 (b <= 64, the
+// lazy engine's common gathers): the work is b dot products per candidate
+// and the bytes are zc's, so it streams zc at memory speed:
+//   * 32 candidates per block: 256 blocks at 8192 candidates, all resident
+//     at once (at most 104,448 bytes of dynamic shared memory each, at
+//     b = 64);
+//   * k-slabs of 64 floats of the 32 candidate rows and of the touched rows
+//     go through a 4-stage ring in shared memory, filled by 16-byte
+//     cp.async copies (no register staging): three slabs of each block,
+//     ~48 KB of zc per SM, are in flight while one is computed;
+//   * one instance per power of two BP >= b (the gather levels; rows past
+//     b are zero-filled and left out of the sum).  A thread owns R rows
+//     times C candidates, so the work grows with b: one pair per thread up
+//     to b = 4 (32 to 128 threads), then 2 or 4 rows and 1, 2 or 4
+//     candidates per thread at 128 threads, so that a value loaded from
+//     shared memory serves several FMAs.  The choice per level was measured: with fewer threads (one
+//     warp holding all rows) each launch waited on its loads' latency.
+//     A load phase reads one touched row (a broadcast) and 8 consecutive
+//     candidate rows (distinct banks at the pitch of 68 floats), 4 k at a
+//     time;
+//   * the b x 32 terms go to shared memory and are summed there in the
+//     tiled kernel's order (below).
+// Both instances give each candidate the same fp32 value, bit for bit: per
+// pair one fmaf chain over k in order from 0.f, s = 0.5f + 0.5f * acc, the
+// row term t_i = fmaxf(s - c_new_i, 0.f) - fmaxf(s - c_old_i, 0.f); in a
+// 256-row chunk, partial P_r (r < 16) adds t_r, t_{r+16}, t_{r+32}, ... to
+// 0.f in row order, and the chunk's value is ((P_0 + P_1) + ...) + P_15.
+// So b rows padded with +inf rows up to the next level (or the budget) give
+// the b rows' value whichever instance runs.  The small-b instance needs
+// d % 4 == 0 and 16-byte-aligned z and zc (cp.async's granule); a call
+// without them runs the tiled instance.
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
 
 namespace {
 
@@ -236,6 +267,196 @@ int launch_gram_free(const void* z, const void* zc, long long zc_bstride,
                 n_cand, batch, s);
 }
 
+// ---------------------------------------------------------------------------
+// B3 at b <= SMALL_B: the small-b instance
+// ---------------------------------------------------------------------------
+
+constexpr int SMALL_B = 64;                 // largest b it takes: a gather level
+constexpr int SB_CANDS = 32;                // candidates per block
+constexpr int SB_BK = 64;                   // k-slab depth
+constexpr int SB_PITCH = SB_BK + 4;         // slab row pitch (floats)
+constexpr int SB_STAGES = 4;
+constexpr int SB_GRANULES = SB_BK / 4;      // 16-byte copies per slab row
+
+// The instance for b <= BP touched rows (BP a power of two): R rows times
+// C candidates per thread, G groups of rows by LANES lanes of candidates.
+template <int BP>
+struct SmallB {
+  static constexpr int R = BP < 8 ? 1 : (BP < 32 ? 2 : 4);   // rows per thread: g + G i
+  static constexpr int G = BP / R;                           // row groups
+  static constexpr int C = BP <= 8 ? 1 : (BP < 64 ? 2 : 4);  // candidates: lane + LANES j
+  static constexpr int LANES = SB_CANDS / C;
+  static constexpr int ACTIVE = G * LANES;              // threads that compute
+  static constexpr int THREADS = ACTIVE < 64 ? 64 : ACTIVE;  // threads that copy
+  static constexpr int STAGE = (SB_CANDS + BP) * SB_PITCH;   // floats: zc slab, then z slab
+  static constexpr int SMEM = SB_STAGES * STAGE * 4;
+  static_assert(ACTIVE % 32 == 0, "whole warps compute");
+  static_assert(SB_STAGES * STAGE >= (BP + RS) * SB_CANDS, "the ring holds the terms");
+};
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared without the registers; zero-filled when !valid
+// (src-size 0: `src` is not read).
+__device__ __forceinline__ void copy16(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Slab k0 of candidates [col0, col0 + 32) and of the touched rows, rows
+// [b, BP) zero-filled.
+template <int BP>
+__device__ __forceinline__ void small_b_slab(float* st, const float* __restrict__ z,
+                                             const float* __restrict__ zc, int col0, int b,
+                                             int n_cand, int k0, int d) {
+  for (int e = threadIdx.x; e < (SB_CANDS + BP) * SB_GRANULES; e += SmallB<BP>::THREADS) {
+    const int r = e / SB_GRANULES;
+    const int g = (e % SB_GRANULES) * 4;
+    const bool cand = r < SB_CANDS;
+    const int row = cand ? col0 + r : r - SB_CANDS;
+    const bool ok = (cand ? row < n_cand : row < b) && k0 + g < d;
+    const float* src = cand ? zc : z;
+    copy16(smem_addr(st + r * SB_PITCH + g), ok ? src + (long long)row * d + k0 + g : src, ok);
+  }
+}
+
+// grid = ceil(n_cand / 32); writes out[j] for the block's candidates.
+template <int BP>
+__global__ void __launch_bounds__(SmallB<BP>::THREADS)
+delta_small_b_kernel(const float* __restrict__ z, const float* __restrict__ zc,
+                     const float* __restrict__ c_old, const float* __restrict__ c_new,
+                     float* __restrict__ out, int b, int n_cand, int d) {
+  using P = SmallB<BP>;
+  extern __shared__ __align__(16) float ring[];
+  __shared__ float cov_old[BP];
+  __shared__ float cov_new[BP];
+
+  const int tid = threadIdx.x;
+  const int lane = tid % P::LANES;
+  const int grp = tid / P::LANES;
+  const int col0 = blockIdx.x * SB_CANDS;
+  const int nk = (d + SB_BK - 1) / SB_BK;
+
+#pragma unroll
+  for (int s = 0; s < SB_STAGES - 1; ++s) {
+    if (s < nk) small_b_slab<BP>(ring + s * P::STAGE, z, zc, col0, b, n_cand, s * SB_BK, d);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  for (int r = tid; r < b; r += P::THREADS) {
+    cov_old[r] = c_old[r];
+    cov_new[r] = c_new[r];
+  }
+
+  float acc[P::R][P::C];
+#pragma unroll
+  for (int i = 0; i < P::R; ++i)
+#pragma unroll
+    for (int j = 0; j < P::C; ++j) acc[i][j] = 0.f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(SB_STAGES - 2) : "memory");
+    __syncthreads();
+    const int next = kt + SB_STAGES - 1;
+    if (next < nk)
+      small_b_slab<BP>(ring + (next % SB_STAGES) * P::STAGE, z, zc, col0, b, n_cand,
+                       next * SB_BK, d);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    if (tid >= P::ACTIVE) continue;  // whole warps
+
+    const float* cs = ring + (kt % SB_STAGES) * P::STAGE;
+    const float* zs = cs + SB_CANDS * SB_PITCH;
+#pragma unroll
+    for (int g = 0; g < SB_BK; g += 4) {
+      float4 c[P::C];
+#pragma unroll
+      for (int j = 0; j < P::C; ++j)
+        c[j] = *reinterpret_cast<const float4*>(cs + (lane + P::LANES * j) * SB_PITCH + g);
+#pragma unroll
+      for (int i = 0; i < P::R; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(zs + (grp + P::G * i) * SB_PITCH + g);
+#pragma unroll
+        for (int j = 0; j < P::C; ++j) {
+          acc[i][j] = fmaf(a.x, c[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, c[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, c[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, c[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();  // the ring is free for the terms; cov_* are visible
+
+  // terms[row][cand] of the b rows, then the fixed order of the tiled
+  // kernel: part[r][cand] adds rows r, r + 16, ... to 0.f in order, and
+  // the value adds part[0], part[1], ..., part[15] in order
+  float* terms = ring;                          // BP x 32
+  float* part = ring + BP * SB_CANDS;           // 16 x 32
+  if (tid < P::ACTIVE) {
+#pragma unroll
+    for (int i = 0; i < P::R; ++i) {
+      const int row = grp + P::G * i;
+      if (row >= b) continue;
+      const float c1 = cov_old[row];
+#pragma unroll
+      for (int j = 0; j < P::C; ++j) {
+        const float s = 0.5f + 0.5f * acc[i][j];
+        terms[row * SB_CANDS + lane + P::LANES * j] =
+            fmaxf(s - cov_new[row], 0.f) - fmaxf(s - c1, 0.f);
+      }
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < RS * SB_CANDS; e += P::THREADS) {
+    const int r = e / SB_CANDS;
+    const int j = e % SB_CANDS;
+    float p = 0.f;
+    for (int row = r; row < b; row += RS) p += terms[row * SB_CANDS + j];
+    part[e] = p;
+  }
+  __syncthreads();
+  if (tid < SB_CANDS && col0 + tid < n_cand) {
+    float s = part[tid];
+#pragma unroll
+    for (int t = 1; t < RS; ++t) s += part[t * SB_CANDS + tid];
+    out[col0 + tid] = s;
+  }
+}
+
+bool small_b(const void* z, const void* zc, int b, int d) {
+  return b <= SMALL_B && d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(zc) % 16 == 0;
+}
+
+template <int BP>
+int launch_small_b(const void* z, const void* zc, const void* c_old, const void* c_new,
+                   void* out, int b, int n_cand, int d, cudaStream_t stream) {
+  auto kernel = delta_small_b_kernel<BP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SmallB<BP>::SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<(n_cand + SB_CANDS - 1) / SB_CANDS, SmallB<BP>::THREADS, SmallB<BP>::SMEM, stream>>>(
+      static_cast<const float*>(z), static_cast<const float*>(zc),
+      static_cast<const float*>(c_old), static_cast<const float*>(c_new),
+      static_cast<float*>(out), b, n_cand, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instance of the smallest power of two BP >= b.
+int launch_delta_small_b(const void* z, const void* zc, const void* c_old, const void* c_new,
+                         void* out, int b, int n_cand, int d, cudaStream_t s) {
+  if (b <= 1) return launch_small_b<1>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+  if (b <= 2) return launch_small_b<2>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+  if (b <= 4) return launch_small_b<4>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+  if (b <= 8) return launch_small_b<8>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+  if (b <= 16) return launch_small_b<16>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+  if (b <= 32) return launch_small_b<32>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+  return launch_small_b<64>(z, zc, c_old, c_new, out, b, n_cand, d, s);
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes).  All tensors are fp32,
@@ -256,14 +477,25 @@ extern "C" int fl_gains_gram_free_f32(const void* z, const void* zc,
 }
 
 // B3: out[j] = sum_i relu(K_ij - c_new_i) - relu(K_ij - c_old_i) over the
-// b touched rows z (b, d), K_ij = 0.5 + 0.5 <z_i, zc_j>.
+// b touched rows z (b, d), K_ij = 0.5 + 0.5 <z_i, zc_j>.  The small-b
+// instance for b <= 64, d % 4 == 0 and 16-byte-aligned z and zc, else the
+// tiled one; the two agree bit for bit.  *small_b_out is set to 1 if the
+// small-b instance was launched, else 0.
 extern "C" int fl_gains_gram_free_delta_f32(const void* z, const void* zc,
                                             const void* c_old, const void* c_new,
                                             void* out, void* scratch, int b,
-                                            int n_cand, int d, void* stream) {
+                                            int n_cand, int d, int* small_b_out,
+                                            void* stream) {
+  *small_b_out = small_b(z, zc, b, d) ? 1 : 0;
+  if (*small_b_out)
+    return launch_delta_small_b(z, zc, c_old, c_new, out, b, n_cand, d,
+                                static_cast<cudaStream_t>(stream));
   return launch_gram_free<true>(z, zc, 0, c_old, c_new, 0, out, scratch, b, n_cand,
                                 d, 1, stream);
 }
+
+// Dynamic shared memory of the small-b launch at b <= 64 (its largest).
+extern "C" int fl_gains_gram_free_delta_small_b_smem_bytes() { return SmallB<SMALL_B>::SMEM; }
 
 // B4: out[b, j] = sum_i relu(K[b, i, j] - c[b, i]).
 extern "C" int fl_gains_f32(const void* K, long long k_bstride, long long ldk,

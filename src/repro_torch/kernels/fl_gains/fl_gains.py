@@ -17,8 +17,15 @@ Every candidate's sum follows a fixed order over the ground rows (see the
 source), so repeated launches are bit-identical and a candidate's gain does
 not depend on the other candidates of the launch.
 
-``launches`` counts, per kernel, the calls that launched it; set the
-entries to 0 before a run to read how many that run made.
+The delta has two instances, chosen inside its C entry point: a small-b
+one for b ≤ 64 touched rows (the lazy engine's common gathers) that streams
+``zc`` at memory speed, and the tiled one for larger b.  Both give the same
+value bit for bit; the entry point reports which one it launched.
+
+``launches`` counts, per kernel, the calls that launched it, and
+``delta_launches`` the delta's launches per instance, as the C entry point
+reported them; set the entries to 0 before a run to read how many that run
+made.
 """
 from __future__ import annotations
 
@@ -29,12 +36,14 @@ import torch
 from repro_torch.kernels import _build
 
 launches = {"fl_gains": 0, "fl_gains_gram_free": 0, "fl_gains_gram_free_delta": 0}
+delta_launches = {"small_b": 0, "tiled": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fl_gains_f32": [_P, _L, _L, _P, _L, _P, _P, _I, _I, _I, _P],
     "fl_gains_gram_free_f32": [_P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P],
-    "fl_gains_gram_free_delta_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "fl_gains_gram_free_delta_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                     ctypes.POINTER(_I), _P],
 }
 _CHUNK = 256           # ground rows per chunk (csrc/fl_gains.cu CHUNK)
 _INT_MAX = 2**31 - 1
@@ -124,10 +133,12 @@ def fl_gains_gram_free_delta_cuda(z: torch.Tensor, zc: torch.Tensor, c_old: torc
                          f"are not ({b},)")
     out, scratch = _outputs(z.device, 1, b, n_cand)
     if n_cand and b:
+        small_b = _I()
         _run("fl_gains_gram_free_delta_f32",
              [z.data_ptr(), zc.data_ptr(), c_old.data_ptr(), c_new.data_ptr(),
-              out.data_ptr(), _ptr(scratch), b, n_cand, d], z.device)
+              out.data_ptr(), _ptr(scratch), b, n_cand, d, ctypes.byref(small_b)], z.device)
         launches["fl_gains_gram_free_delta"] += 1
+        delta_launches["small_b" if small_b.value else "tiled"] += 1
     else:
         out.zero_()
     return out[0]

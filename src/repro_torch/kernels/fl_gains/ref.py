@@ -77,3 +77,32 @@ def fl_gains_gram_free_delta_ref(
     new = torch.relu(sim - c_new.float()[..., :, None])
     old = torch.relu(sim - c_old.float()[..., :, None])
     return sum_rows(new - old)
+
+
+def delta_order_sum(terms: torch.Tensor) -> torch.Tensor:
+    """The CUDA delta kernels' fp32 sum of row terms ``terms`` (b, n_cand)
+    over the rows, in their fixed order (``csrc/fl_gains.cu``): rows are cut
+    into chunks of 256 by absolute index; in a chunk, partial ``P_r``
+    (r < 16) adds rows r, r + 16, r + 32, ... to 0 in row order, and the
+    chunk's value is ((P_0 + P_1) + P_2) + ... + P_15; chunks are added in
+    index order.  Both instances of the delta sum so, so that b rows and the
+    same rows padded with exact-zero (``+inf``) rows give one value.
+    Returns (n_cand,) float32."""
+    terms = terms.float()
+    b, m = terms.shape
+    total = None
+    for lo in range(0, b, 256):
+        chunk = terms[lo:lo + 256]
+        # rows r + 16 q as [q, r]: the missing rows of a short chunk are
+        # zeros, which leave every partial as it is (a partial is never -0)
+        rows = torch.zeros((256, m), dtype=torch.float32)
+        rows[:len(chunk)] = chunk
+        rows = rows.view(16, 16, m)
+        part = torch.zeros((16, m), dtype=torch.float32)
+        for q in range(16):
+            part = part + rows[q]
+        value = part[0]
+        for r in range(1, 16):
+            value = value + part[r]
+        total = value if total is None else total + value
+    return torch.zeros(m, dtype=torch.float32) if total is None else total

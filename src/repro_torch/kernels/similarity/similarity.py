@@ -4,7 +4,10 @@ Replaces the TPU kernel ``similarity_pallas`` (``repro/kernels/similarity/
 similarity.py``): ``S = 0.5 + 0.5 * Zq·Zkᵀ`` in fp32 from fp32 or bf16 rows,
 with the row normalisation fused when ``normalized=False``.  The kernel masks
 ragged edges itself and writes through a row stride, so no padding copy is
-made and a tile can be written straight into a larger output.
+made and a tile can be written straight into a larger output.  Its
+asynchronous copies move 4 elements at a time, so it takes rows it can
+address that way (``copy_ready``); ``ops.similarity`` copies any other input
+first.
 
 ``launches`` counts the kernel launches this wrapper made; set it to 0 before
 a run to read how many that run made.
@@ -24,6 +27,14 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_void_p]
 _ENTRY = {torch.float32: "similarity_f32", torch.bfloat16: "similarity_bf16"}
 _INT_MAX = 2**31 - 1
+_TILE = 128            # output rows (and columns) per block (csrc/similarity.cu BM)
+
+
+def copy_ready(t: torch.Tensor) -> bool:
+    """Whether the kernel's 4-element copies can address the (m, d) rows
+    ``t`` in place: contiguous, d % 4 == 0 and a base aligned to 4 elements."""
+    return (t.is_contiguous() and t.shape[-1] % 4 == 0
+            and t.data_ptr() % (4 * t.element_size()) == 0)
 
 
 def similarity_cuda(
@@ -48,11 +59,12 @@ def similarity_cuda(
     if zq.dim() != 2 or zk.dim() != 2 or zq.shape[1] != zk.shape[1]:
         raise ValueError(f"shapes {tuple(zq.shape)} and {tuple(zk.shape)} are not "
                          "(mq, d) and (mk, d)")
-    if not (zq.is_contiguous() and zk.is_contiguous()):
-        raise ValueError("similarity_cuda needs contiguous row-major inputs")
+    if not (copy_ready(zq) and copy_ready(zk)):
+        raise ValueError("similarity_cuda needs contiguous row-major inputs with d % 4 == 0 "
+                         "and bases aligned to 4 elements (ops.similarity copies others)")
     mq, d = zq.shape
     mk = zk.shape[0]
-    if max(mq, mk, d) > _INT_MAX or (mq + 63) // 64 > 65535:
+    if max(mq, mk, d) > _INT_MAX or -(-mq // _TILE) > 65535:
         raise ValueError(f"shape ({mq}, {mk}, {d}) exceeds the kernel's grid")
     if out is None:
         out = torch.empty((mq, mk), dtype=torch.float32, device=zq.device)

@@ -208,6 +208,121 @@ def test_lazy_engine_on_the_card(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# the fixed FMA and summation order B1 and B3 keep bit for bit: B1 against
+# B2's tile values, B3's two instances against each other and against the
+# plain order sum over B2-built tile values
+# ---------------------------------------------------------------------------
+
+
+LEVELS = [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024]
+
+
+def _tiles(z, zc):
+    """B2's tile values 0.5 + 0.5 <z_i, zc_j>: with one ground row at cover
+    0 the gram-free kernel returns that row's similarities themselves."""
+    zero = torch.zeros((1,), device=z.device)
+    return torch.stack([fl_ops.fl_gains_gram_free(z[i:i + 1], zc, zero) for i in range(len(z))])
+
+
+def _misaligned(t):
+    """An equal copy of ``t`` whose base is 4 bytes off 16-byte alignment."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mq,mk,d", [(300, 517, 48), (129, 130, 100), (70, 1000, 37),
+                                     (2048, 640, 768)])
+def test_similarity_kernel_equals_gram_free_tiles(cuda_device, mq, mk, d):
+    """B1 (fp32, normalized rows) into a row-strided out, ragged mq, mk and
+    d (d = 37 through the dispatch's counted copy): every row bit-equal to
+    B2's tile values, the same fmaf chain in k order."""
+    rng = np.random.default_rng(mq + d)
+    zq = _rows(rng, mq, d, True, cuda_device, torch.float32)
+    zk = _rows(rng, mk, d, True, cuda_device, torch.float32)
+    big = torch.full((mq + 3, mk + 29), -1.0, device=cuda_device)
+    copies = sim_ops.copies
+    sim_ops.similarity(zq, zk, normalized=True, out=big[:mq, :mk])
+    assert sim_ops.copies == copies + (2 if d % 4 else 0)
+    rows = torch.tensor(sorted({0, 1, mq // 2, mq - 1}), device=cuda_device)
+    assert torch.equal(big[rows, :mk], _tiles(zq[rows], zk))
+    assert (big[mq:] == -1).all() and (big[:, mk:] == -1).all(), "nothing outside the view"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalized", [False, True])
+def test_similarity_bf16_equals_fp32_on_the_rounded_rows(cuda_device, normalized):
+    rng = np.random.default_rng(11)
+    zq = _rows(rng, 200, 72, normalized, cuda_device, torch.bfloat16)
+    zk = _rows(rng, 333, 72, normalized, cuda_device, torch.bfloat16)
+    assert torch.equal(sim_kernel.similarity_cuda(zq, zk, normalized=normalized),
+                       sim_kernel.similarity_cuda(zq.float(), zk.float(), normalized=normalized))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("normalized", [False, True])
+def test_similarity_copies_what_the_kernel_cannot_address_exactly(cuda_device, normalized):
+    """A misaligned base, a column-major view and d % 4 != 0 each go
+    through one counted copy, and give the kernel's output on an aligned
+    (zero-padded) copy made by hand, bit for bit; the wrapper itself
+    refuses them."""
+    rng = np.random.default_rng(12)
+    zq = _rows(rng, 150, 64, normalized, cuda_device, torch.float32)
+    zk = _rows(rng, 90, 64, normalized, cuda_device, torch.float32)
+    want = sim_kernel.similarity_cuda(zq, zk, normalized=normalized)
+    copies = sim_ops.copies
+    assert torch.equal(sim_ops.similarity(_misaligned(zq), zk, normalized=normalized), want)
+    assert torch.equal(sim_ops.similarity(zq, zk.T.contiguous().T, normalized=normalized), want)
+    assert sim_ops.copies == copies + 2
+    with pytest.raises(ValueError):
+        sim_kernel.similarity_cuda(_misaligned(zq), zk, normalized=normalized)
+    q, k = zq[:, :61].contiguous(), zk[:, :61].contiguous()
+    padded = sim_kernel.similarity_cuda(torch.nn.functional.pad(q, (0, 3)),
+                                        torch.nn.functional.pad(k, (0, 3)), normalized=normalized)
+    assert torch.equal(sim_ops.similarity(q, k, normalized=normalized), padded)
+    assert sim_ops.copies == copies + 4
+    with pytest.raises(ValueError):
+        sim_kernel.similarity_cuda(q, k, normalized=normalized)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", LEVELS + [3, 17, 63, 65])
+def test_delta_instances_bit_equal_across_the_edge(cuda_device, b):
+    """B3 at b touched rows: the instance the C entry point launches (it
+    reports small-b up to 64, tiled above) equals the other instance (a
+    misaligned zc or z takes the tiled one), the same rows padded with +inf
+    rows to every larger gather level and to the 1024 budget, a candidate
+    slice, and the plain order sum over B2-built tile values — bit for bit."""
+    rng = np.random.default_rng(b)
+    d, n_cand = 100, 777
+    z, zc, c, c_new = _fl_inputs(rng, b, n_cand, d, cuda_device)
+
+    def launched(*args):
+        before = dict(fl_kernel.delta_launches)
+        out = fl_ops.fl_gains_gram_free_delta(*args)
+        return out, [k for k in before if fl_kernel.delta_launches[k] - before[k] == 1]
+
+    base, inst = launched(z, zc, c, c_new)
+    assert inst == (["small_b"] if b <= 64 else ["tiled"])
+    for args in ((z, _misaligned(zc), c, c_new), (_misaligned(z), zc, c, c_new)):
+        other, inst = launched(*args)
+        assert inst == ["tiled"]
+        assert torch.equal(base, other)
+    for size in [lv for lv in LEVELS if lv > b]:
+        pad = size - b
+        inf = torch.full((pad,), float("inf"), device=cuda_device)
+        padded = fl_ops.fl_gains_gram_free_delta(torch.cat([z, zc.repeat(2, 1)[:pad]]), zc,
+                                                 torch.cat([c, inf]), torch.cat([c_new, inf]))
+        assert torch.equal(padded, base), size
+    assert torch.equal(fl_ops.fl_gains_gram_free_delta(z, zc[100:451], c, c_new), base[100:451])
+    K = _tiles(z, zc)
+    terms = torch.relu(K - c_new[:, None]) - torch.relu(K - c[:, None])
+    assert torch.equal(fl_ref.delta_order_sum(terms.cpu()), base.cpu())
+
+
+# ---------------------------------------------------------------------------
 # flash attention (csrc/flash_attention.cu) and the SSD chunk
 # (csrc/ssd_chunk.cu) against their plain versions
 # ---------------------------------------------------------------------------

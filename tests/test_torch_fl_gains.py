@@ -177,13 +177,83 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_the_kernels_source_entry_points_match_the_bindings():
     """Every ctypes binding names a C entry point of ``csrc/fl_gains.cu``
-    with as many parameters as it declares."""
+    with as many parameters as it declares, and every entry point there is
+    a binding or the small-b launch's shared-memory report."""
     import re
     from pathlib import Path
 
     src = (Path(tkern.__file__).parents[2] / "csrc" / "fl_gains.cu").read_text()
+    entries = {name: [p for p in params.split(",") if p.strip()]
+               for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)}
     for name, argtypes in tkern._ARGTYPES.items():
-        m = re.search(r'extern "C" int ' + name + r"\(([^)]*)\)", src)
-        assert m, name
-        assert len(m.group(1).split(",")) == len(argtypes), name
+        assert name in entries, name
+        assert len(entries[name]) == len(argtypes), name
+    assert set(entries) == set(tkern._ARGTYPES) | {"fl_gains_gram_free_delta_small_b_smem_bytes"}
     assert importlib.import_module("repro_torch.kernels.fl_gains.ops") is tops
+
+
+# ---------------------------------------------------------------------------
+# the delta kernels' fixed summation order (``ref.delta_order_sum``), which
+# both CUDA instances follow bit for bit (tests/test_torch_cuda.py holds them
+# to it on the card)
+# ---------------------------------------------------------------------------
+
+def _delta_terms(z, zc, c_old, c_new):
+    """The kernels' row terms relu(K - c_new) - relu(K - c_old) in fp32."""
+    K = tref._sim(z, zc)
+    return torch.relu(K - c_new[:, None]) - torch.relu(K - c_old[:, None])
+
+
+@pytest.mark.parametrize("b", [1, 2, 5, 16])
+def test_order_sum_is_the_sequential_sum_for_few_rows(b):
+    """Up to 16 rows every partial holds one row, so the order is the
+    sequential fp32 sum from row 0."""
+    terms = _delta_terms(*_t(*_inputs(b, 70, 12, 40 + b)))
+    seq = torch.zeros(70)
+    for row in terms:
+        seq = seq + row
+    assert torch.equal(tref.delta_order_sum(terms), seq)
+
+
+@pytest.mark.parametrize("level", [1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024])
+def test_order_sum_ignores_trailing_inf_rows(level):
+    """The lazy engine's gather levels: b touched rows padded with +inf
+    rows (exact-zero terms) to this level and to the 1024 budget keep the
+    sum of the b rows, bit for bit."""
+    b = max(1, (3 * level) // 4)
+    z, zc, c_old, c_new = _t(*_inputs(b, 50, 8, level))
+    base = tref.delta_order_sum(_delta_terms(z, zc, c_old, c_new))
+    for size in (level, 1024):
+        pad = size - b
+        zp = torch.cat([z, torch.zeros((pad, 8))])
+        inf = torch.full((pad,), float("inf"))
+        terms = _delta_terms(zp, zc, torch.cat([c_old, inf]), torch.cat([c_new, inf]))
+        assert torch.equal(tref.delta_order_sum(terms), base), size
+
+
+@pytest.mark.parametrize("b", [1, 7, 64, 300, 1024])
+def test_order_sum_agrees_with_the_delta_ref(b):
+    """The fixed fp32 order against the plain version's float64 running sum:
+    within the smoke's fl_tol (rtol 1e-4, atol 2^-20 per row, at least 1e-5)."""
+    z, zc, c_old, c_new = _t(*_inputs(b, 90, 16, b))
+    out = tref.delta_order_sum(_delta_terms(z, zc, c_old, c_new))
+    ref = tref.fl_gains_gram_free_delta_ref(z, zc, c_old, c_new)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), rtol=1e-4, atol=max(1e-5, b * 2.0**-20))
+
+
+def test_small_b_instance_edge_is_a_gather_level():
+    """The small-b instance's largest b (``SMALL_B`` of ``csrc/fl_gains.cu``,
+    where the entry point alone picks the instance) is a level of the
+    two-level gathers at the budgets the engines use, and the entry point's
+    comment and the wrapper's docstring state the same edge."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.core import greedy
+
+    src = (Path(tkern.__file__).parents[2] / "csrc" / "fl_gains.cu").read_text()
+    edge = int(re.search(r"constexpr int SMALL_B = (\d+);", src).group(1))
+    for budget in (128, 1024):
+        assert edge in greedy._gather_levels(budget)
+    assert f"instance for b <= {edge}, d % 4 == 0" in src
+    assert f"b ≤ {edge} touched rows" in tkern.__doc__

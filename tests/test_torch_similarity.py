@@ -121,3 +121,54 @@ def test_zero_norm_rows_stay_exact_zero_rows():
     # a zero row scores exactly 0.5 against everything under the rescaled cosine
     K = tsim.gram_matrix_blocked(torch.from_numpy(z), block=5).numpy()
     assert np.all(K[2] == 0.5) and np.all(K[:, 7] == 0.5)
+
+
+def test_copy_operands_pass_addressable_rows_and_copy_the_rest_exactly():
+    """The dispatch's counted copy (``ops.copy_operands``): rows the kernel's
+    4-element copies can address pass through as they are; a misaligned
+    base or a non-contiguous view is copied exactly, and d % 4 != 0 pads
+    both operands with zero columns."""
+    z = torch.from_numpy(_rows(np.random.default_rng(5), 24, 12, True))
+    before = tsim_ops.copies
+    a, b = tsim_ops.copy_operands(z, z[:7])
+    assert a is z and b.data_ptr() == z.data_ptr() and tsim_ops.copies == before
+    buf = torch.zeros(24 * 12 + 1)
+    off = buf[1:].view(24, 12)
+    off.copy_(z)
+    assert not tsim_kernel.copy_ready(off)
+    a, b = tsim_ops.copy_operands(off, z)
+    assert tsim_ops.copies == before + 1 and b is z, "only the misaligned operand"
+    assert tsim_kernel.copy_ready(a) and torch.equal(a, z)
+    col_major = z.T.contiguous().T
+    a, b = tsim_ops.copy_operands(z, col_major)
+    assert tsim_ops.copies == before + 2 and a is z
+    assert b.is_contiguous() and torch.equal(b, z)
+    a, b = tsim_ops.copy_operands(z[:, :11], z[:5, :11])
+    assert tsim_ops.copies == before + 4 and a.shape == (24, 12) and b.shape == (5, 12)
+    assert torch.equal(a[:, :11], z[:, :11]) and not a[:, 11:].any()
+    # the kernel's k-ordered chain gives the same bits on the padded copy
+    # (tests/test_torch_cuda.py); the CPU BLAS may block the longer product
+    # differently, so here the plain version agrees to fp32 rounding
+    for normalized in (False, True):
+        np.testing.assert_allclose(similarity_ref(a, b, normalized=normalized).numpy(),
+                                   similarity_ref(z[:, :11], z[:5, :11], normalized=normalized).numpy(),
+                                   rtol=0, atol=1e-6)
+    # inputs the kernel refuses pass through to its checks untouched
+    h = z.half()
+    assert tsim_ops.copy_operands(h, h)[0] is h and tsim_ops.copies == before + 4
+
+
+def test_the_kernel_source_entry_points_match_the_bindings():
+    """Each ctypes binding names a C entry point of ``csrc/similarity.cu``
+    with as many parameters as it declares, and every entry point there is
+    a binding or the launch's shared-memory report."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tsim_kernel.__file__).parents[2] / "csrc" / "similarity.cu").read_text()
+    entries = {name: [p for p in params.split(",") if p.strip()]
+               for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+    bound = {name: tsim_kernel._ARGTYPES for name in tsim_kernel._ENTRY.values()}
+    for name, argtypes in bound.items():
+        assert len(entries[name]) == len(argtypes), name
+    assert set(entries) == set(bound) | {"similarity_smem_bytes"}
