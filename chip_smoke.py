@@ -15,10 +15,12 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the gram-free kernel's tile values, bit for bit.
 4. each kernel's time (CUDA events) beside its plain version, one PyTorch
    library call (or, for the fused gram-free kernels, the fp32 product
-   alone as a yardstick) and the card's bound; the lazy delta also on the
-   card alone (calls queued behind a spin kernel), warm and cold (L2
-   flushed before each call), beside its tiled instance (the kernel the
-   small-b one replaced) on both measures.
+   alone as a yardstick) and the card's bound; the gram-free gains at the
+   path's shape (5,000 live rows of 8,192) and with every row live, and the
+   lazy delta, each also on the card alone (calls queued behind a spin
+   kernel) and beside its tiled instance (the kernel its ring or small-b
+   instance replaced) on both measures; the delta also cold (L2 flushed
+   before each call).
 5. MILO's main path at full width through ``MiloSession(use_pallas=True)``:
    CIFAR-10's geometry (50,000 training rows in 10 classes, 10,000 test
    rows, d = 768, the ViT-B embedding width), preprocess with the paper's
@@ -30,8 +32,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
    use_pallas=True, hard_fn="facility_location", lazy_gains=True,
    lazy_two_level=True)`` — no Gram; facility-location importance through
    the lazy engine and the ``fl_gains`` kernels; stage times, launches,
-   full recomputes, rows gathered per lazy step, the delta's gather sizes
-   and launches per instance, peak memory, accuracy.
+   full recomputes, rows gathered per lazy step, the delta's gather sizes,
+   both kernels' launches per instance, peak memory, accuracy, and a
+   SHA-256 of the artifact's importance and bank.
 8. on class 0 of that path: kernel route against plain route, two-level
    against single-level gathers, and ``verify_argmax`` against eager greedy.
 9. ``make_facility_location_pallas`` (the dense-Gram ``fl_gains`` kernel)
@@ -66,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import math
 import re
@@ -155,6 +159,27 @@ def queued_ms(fn, iters: int = 20, warmup: int = 3, flush: torch.Tensor | None =
             return sum(start.elapsed_time(end) for start, end in pairs) / iters
         spin *= 4
     raise RuntimeError("the spin kernel ended before the timed calls were issued")
+
+
+def sm_clock_mhz(fn, seconds: float = 1.0) -> tuple[float, float]:
+    """Mean SM clock (MHz; ``nvidia-smi`` samples it every 50 ms) while
+    ``fn`` runs back to back for about ``seconds``, and the card's maximum."""
+    query = ["nvidia-smi", "-i", "0", "--format=csv,noheader,nounits"]
+    top = float(subprocess.run(query + ["--query-gpu=clocks.max.sm"], capture_output=True,
+                               text=True, timeout=60, check=True).stdout)
+    proc = subprocess.Popen(query + ["--query-gpu=clocks.sm", "-lms", "50"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        proc.stdout.readline()  # the first sample: the sampler runs
+        end = time.perf_counter() + seconds
+        while time.perf_counter() < end:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    mhz = [float(v) for v in out.split()]
+    return (sum(mhz) / len(mhz) if mhz else float("nan")), top
 
 
 def rows(gen: torch.Generator, m: int, d: int, dev, dtype, normalized: bool) -> torch.Tensor:
@@ -268,7 +293,7 @@ SMALL_B_INSTANCES = {f"b<={bp}": f"delta_small_b_kernelILi{bp}EE" for bp in (1, 
 
 
 def phase_kernel_checks(dev) -> float:
-    from repro_torch.kernels.fl_gains.fl_gains import fl_gains_gram_free_cuda
+    from repro_torch.kernels.fl_gains import fl_gains as fk
     from repro_torch.kernels.similarity.ref import similarity_ref
     from repro_torch.kernels.similarity.similarity import similarity_cuda
 
@@ -295,9 +320,10 @@ def phase_kernel_checks(dev) -> float:
                 if dtype == torch.float32 and normalized:
                     # B1 and B2 build each similarity as one fmaf chain in k
                     # order: with one ground row at cover 0 the gram-free
-                    # kernel returns that row's tile values themselves
+                    # kernel (its ring instance) returns that row's tile
+                    # values themselves
                     picked = sorted({0, 1, mq // 2, mq - 1})
-                    tiles = torch.stack([fl_gains_gram_free_cuda(zq[i:i + 1], zk, zero)
+                    tiles = torch.stack([gram_free(fk, zq[i:i + 1], zk, zero, "ring")
                                          for i in picked])
                     _bit_equal(f"similarity ({mq}, {mk}, {d}) f32 normalized: rows {picked} "
                                "against the gram-free kernel's tile values", out[picked], tiles)
@@ -352,6 +378,34 @@ def _bit_equal(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
         raise AssertionError(f"{name}: not bit-equal (max diff {float((a - b).abs().max()):.3e})")
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """An equal copy of ``t`` whose base is 4 bytes off 16-byte alignment:
+    the fl_gains kernels' C entry points then launch their tiled instance."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def gram_free(fk, z, zc, c, instance: str) -> torch.Tensor:
+    """B2's gains, asserting that its C entry point launched ``instance``."""
+    before = dict(fk.gram_free_launches)
+    out = fk.fl_gains_gram_free_cuda(z, zc, c)
+    ran = [k for k in before if fk.gram_free_launches[k] > before[k]]
+    if ran != [instance]:
+        raise AssertionError(f"fl_gains_gram_free launched {ran}, expected {instance}")
+    return out
+
+
+def gram_free_both(fk, name: str, z, zc, c) -> torch.Tensor:
+    """B2 on its ring instance, held bit-equal to its tiled instance (a
+    misaligned copy of z); returns the ring instance's gains."""
+    out = gram_free(fk, z, zc, c, "ring")
+    _bit_equal(f"{name}: ring against tiled instance", out,
+               gram_free(fk, misaligned(z), zc, c, "tiled"))
+    return out
+
+
 def phase_fl_kernel_checks(dev) -> dict[str, float]:
     """The fl_gains family against its plain versions (max abs error per
     kernel) at the gram-free path's shapes and at ragged ones, and the
@@ -365,7 +419,7 @@ def phase_fl_kernel_checks(dev) -> dict[str, float]:
     for n, m, d, n_real in ((8192, 8192, 768, 5000), (5000, 5000, 100, None), (8192, 300, 100, 5000)):
         z, zc, c, c_new = fl_inputs(gen, n, m, d, dev, n_real=n_real)
         tag = f"({n}, {m}, {d}{', ' + str(n_real) + ' real rows' if n_real else ''})"
-        out = fk.fl_gains_gram_free_cuda(z, zc, c)
+        out = gram_free_both(fk, f"fl_gains_gram_free {tag}", z, zc, c)
         err = _check(f"fl_gains_gram_free {tag}", out, fr.fl_gains_gram_free_ref(z, zc, c), fl_tol(n))
         worst["fl_gains_gram_free"] = max(worst["fl_gains_gram_free"], err)
         for b in (1, 8, 64, 1024):
@@ -384,15 +438,21 @@ def phase_fl_kernel_checks(dev) -> dict[str, float]:
 
     log("-- bit-identity properties")
     z, _, c, c_new = fl_inputs(gen, 8192, 1, 768, dev, n_real=5000)
-    full = fk.fl_gains_gram_free_cuda(z, z, c)
-    _bit_equal("fl_gains_gram_free: two launches", full, fk.fl_gains_gram_free_cuda(z, z, c))
+    full = gram_free_both(fk, "fl_gains_gram_free (8192, 8192, 768)", z, z, c)
+    _bit_equal("fl_gains_gram_free: two launches", full, gram_free(fk, z, z, c, "ring"))
     cand = torch.randint(0, 8192, (640,), generator=gen, device=dev)
     _bit_equal("fl_gains_gram_free: gains_at (640 candidates) == gathered gains",
-               fk.fl_gains_gram_free_cuda(z, z[cand].contiguous(), c), full[cand])
+               gram_free_both(fk, "fl_gains_gram_free gains_at", z, z[cand].contiguous(), c),
+               full[cand])
     covers = torch.stack([c, c_new])
-    both = fk.fl_gains_gram_free_cuda(z, z[torch.stack([cand, cand.flip(0)])].contiguous(), covers)
+    both = gram_free_both(fk, "fl_gains_gram_free batch of 2 covers", z,
+                          z[torch.stack([cand, cand.flip(0)])].contiguous(), covers)
     _bit_equal("fl_gains_gram_free: batch of 2 covers == one call per run",
-               both[1], fk.fl_gains_gram_free_cuda(z, z[cand.flip(0)].contiguous(), c_new))
+               both[1], gram_free(fk, z, z[cand.flip(0)].contiguous(), c_new, "ring"))
+    shared = gram_free_both(fk, "fl_gains_gram_free batch of 2 covers, shared zc", z,
+                            z[cand].contiguous(), covers)
+    _bit_equal("fl_gains_gram_free: batch of 2 covers, shared zc == one call per run",
+               shared[0], full[cand])
     for b in (1, 8, 64, 1024):
         rsel = torch.randperm(5000, generator=gen, device=dev)[:b]
         args = (z[rsel].contiguous(), z, c[rsel].contiguous(), c_new[rsel].contiguous())
@@ -418,7 +478,7 @@ def phase_fl_kernel_checks(dev) -> dict[str, float]:
     zero = torch.zeros((1,), device=dev)
     n_diff = worst_ulps = 0
     for i in (0, 1, 777, 4999):
-        tile = fk.fl_gains_gram_free_cuda(z[i:i + 1].contiguous(), z[:5000], zero)
+        tile = gram_free(fk, z[i:i + 1].contiguous(), z[:5000], zero, "ring")
         col = _sim_col(z[:5000], torch.tensor([i], device=dev))[0]
         n_diff += int((tile != col).sum())
         ulp = torch.from_numpy(np.spacing(col.abs().cpu().numpy())).to(dev)
@@ -429,7 +489,7 @@ def phase_fl_kernel_checks(dev) -> dict[str, float]:
     # where a one-row product takes its matrix-vector path)
     two = torch.tensor([777, 777], device=dev)
     col2 = (0.5 + 0.5 * (z[two] @ z[:5000].T))[0]
-    tile = fk.fl_gains_gram_free_cuda(z[777:778].contiguous(), z[:5000], zero)
+    tile = gram_free(fk, z[777:778].contiguous(), z[:5000], zero, "ring")
     log(f"  the same column from a two-row product: {int((tile != col2).sum())} of 5000 differ")
     K = fr._sim(z, z)
     dense = fk.fl_gains_cuda(K, c)
@@ -460,11 +520,50 @@ def phase_fl_kernel_timing(dev, smi: str) -> dict[str, dict]:
         return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
                     library_ms=None, product_ms=product_ms)
 
-    ms = cuda_ms(lambda: fk.fl_gains_gram_free_cuda(z, z, c))
-    plain = cuda_ms(lambda: fr.fl_gains_gram_free_ref(z, z, c), iters=5)
-    prod = cuda_ms(lambda: torch.mm(z, z.T))
-    out["fl_gains_gram_free"] = report("fl_gains_gram_free", f"({n}, {n}, {d})", ms, plain,
-                                       fl_bound_ms("fl_gains_gram_free", n, n, d), prod)
+    # B2 at the path's shape (5,000 live rows of the 8,192-row bucket, the
+    # rest zero at cover +inf) and with every row live, on both instances
+    # (the tiled one through a misaligned z) and on both measures.  bound_ms
+    # counts all n rows, as in every PR; live_bound_ms only the rows with a
+    # finite cover (the least work the call needs), which the ring
+    # instance's skip of all-+inf tiles approaches
+    live_gen = torch.Generator(device=dev).manual_seed(4)
+    z_live = rows(live_gen, n, d, dev, torch.float32, True)
+    c_live = torch.rand((n,), generator=live_gen, device=dev)
+    for key, zz, cc in (("path", z, c), ("all_live", z_live, c_live)):
+        z_off = misaligned(zz)
+        gram_free(fk, zz, zz, cc, "ring")
+        gram_free(fk, z_off, zz, cc, "tiled")
+        ring = dict(ms=cuda_ms(lambda: fk.fl_gains_gram_free_cuda(zz, zz, cc)),
+                    alone_ms=queued_ms(lambda: fk.fl_gains_gram_free_cuda(zz, zz, cc)))
+        tiled = dict(ms=cuda_ms(lambda: fk.fl_gains_gram_free_cuda(z_off, zz, cc)),
+                     alone_ms=queued_ms(lambda: fk.fl_gains_gram_free_cuda(z_off, zz, cc)))
+        plain = cuda_ms(lambda: fr.fl_gains_gram_free_ref(zz, zz, cc), iters=5)
+        prod = cuda_ms(lambda: torch.mm(zz, zz.T))
+        n_live = int(torch.isfinite(cc).sum())
+        live_bound = fl_bound_ms("fl_gains_gram_free", n_live, n, d)[0]
+        row = report("fl_gains_gram_free", f"({n}, {n}, {d}), {key} [ring]", ring["ms"], plain,
+                     fl_bound_ms("fl_gains_gram_free", n, n, d), prod)
+        row.update(ring=ring, tiled=tiled, live_rows=n_live, live_bound_ms=live_bound)
+        log(f"  on the card alone {ring['alone_ms']:.4f} ms; tiled instance (the kernel the ring "
+            f"one replaced) {tiled['ms']:.4f} ms, on the card alone {tiled['alone_ms']:.4f} ms; "
+            f"ring {tiled['ms'] / ring['ms']:.2f}x / {tiled['alone_ms'] / ring['alone_ms']:.2f}x "
+            f"faster")
+        if key == "all_live":
+            # the fp32 peak holds at the card's top clock; read the clock the
+            # ring instance runs at (132 SMs x 128 FMA lanes x 2 per cycle)
+            mhz, top = sm_clock_mhz(lambda: fk.fl_gains_gram_free_cuda(zz, zz, cc))
+            at_clock = 2.0 * (n * n * d) / (132 * 128 * 2 * mhz * 1e6) * 1e3
+            ring.update(sm_clock_mhz=mhz, max_sm_clock_mhz=top, product_bound_at_clock_ms=at_clock)
+            log(f"  SM clock while the ring instance runs {mhz:.0f} MHz (max {top:.0f}): the "
+                f"product alone at that clock's fp32 peak takes {at_clock:.4f} ms, "
+                f"{at_clock / ring['ms']:.1%} of the ring instance's time")
+        share = live_bound / min(ring["ms"], ring["alone_ms"])
+        log(f"  bound over the {n_live} rows with a finite cover (the least work this call "
+            f"needs): {live_bound:.4f} ms; the ring instance's best time reaches {share:.1%} of it")
+        if share > 1.0:
+            raise AssertionError(f"the ring instance beats the least work of its call ({share:.1%})")
+        out[f"fl_gains_gram_free_{key}"] = row
+    out["fl_gains_gram_free"] = out["fl_gains_gram_free_path"]
     # the delta, timed as every kernel is (``cuda_ms``: issued back to back
     # from Python) and on the card alone (``queued_ms``): warm (zc in L2, as
     # in the lazy loop) and cold (a 64 MB write before each call evicts zc
@@ -495,10 +594,7 @@ def phase_fl_kernel_timing(dev, smi: str) -> dict[str, dict]:
             f"is 25 MB and stays in the 50 MB L2, so a warm time may beat the bound of its bytes "
             f"from memory), cold (L2 flushed) {cold:.4f} ms ({bound[0] / cold:.1%})")
         if inst == "small_b":
-            buf = torch.empty(args[0].numel() + 1, device=dev)
-            z_off = buf[1:].view(args[0].shape)
-            z_off.copy_(args[0])
-            targs = (z_off,) + args[1:]
+            targs = (misaligned(args[0]),) + args[1:]
             assert instance(*targs) == "tiled"
             _bit_equal(f"delta b={b}: small-b against tiled instance",
                        fk.fl_gains_gram_free_delta_cuda(*args),
@@ -697,8 +793,9 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         torch.cuda.reset_peak_memory_stats(dev)
     for k in fk.launches:
         fk.launches[k] = 0
-    for k in fk.delta_launches:
-        fk.delta_launches[k] = 0
+    for counts in (fk.gram_free_launches, fk.delta_launches):
+        for k in counts:
+            counts[k] = 0
     sim_kernel.launches = 0
     try:
         t0 = time.perf_counter()
@@ -710,6 +807,7 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         greedy_mod.lazy_greedy = lazy_orig
     launches = dict(fk.launches)
     instances = dict(fk.delta_launches)
+    b2_instances = dict(fk.gram_free_launches)
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     t0 = time.perf_counter()
     report = session.train(x, y, test_x=tx, test_y=ty)
@@ -738,6 +836,12 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
     gathers = dict(zip(sizes.tolist(), counts.tolist()))
     log(f"fl_gains_gram_free_delta gather sizes b (b: calls): {gathers}")
     log(f"fl_gains_gram_free_delta launches per instance: {instances}")
+    log(f"fl_gains_gram_free launches per instance: {b2_instances}")
+    # the artifact's bits, to compare two builds of the port run for run
+    for name in ("wre_importance", "sge_subsets"):
+        arr = np.ascontiguousarray(getattr(md, name))
+        log(f"sha256 of {name} ({arr.dtype}, {arr.shape}): "
+            f"{hashlib.sha256(arr.tobytes()).hexdigest()}")
 
     k = md.k
     assert len(runs) == n_classes, f"{len(runs)} lazy passes for {n_classes} classes"
@@ -754,6 +858,7 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         assert launches["fl_gains_gram_free_delta"] == len(lazy_rows), launches
         assert sum(instances.values()) == launches["fl_gains_gram_free_delta"], instances
         assert instances["small_b"] > instances["tiled"] > 0, "both instances run, small-b most"
+        assert b2_instances == {"ring": launches["fl_gains_gram_free"], "tiled": 0}, b2_instances
         per_class = [(d["fl_gains_gram_free"], d["fl_gains_gram_free_delta"]) for _, _, d in runs]
         log(f"(fl_gains_gram_free, fl_gains_gram_free_delta) launches per class: {per_class}")
         assert all(b2 >= 1 and b3 >= 1 for b2, b3 in per_class), per_class
@@ -766,7 +871,8 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
                             **GRAM_FREE_PATH)
         assert reuse.preprocess(x, y).config_hash() == md.config_hash() and reuse.loaded_from_artifact
     log(f"artifact round trip: config_hash {md.config_hash()} reloads equal and is reused")
-    return dict(launches=launches, session=session, md=md, instances=instances, gathers=gathers)
+    return dict(launches=launches, session=session, md=md, instances=instances, gathers=gathers,
+                b2_instances=b2_instances)
 
 
 def _class0(x, y, session, dev):
@@ -1397,7 +1503,7 @@ def main() -> int:
     phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
     dense_launches = phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
     sim_launches, gf_launches = main_run["launches"], gf["launches"]
-    delta_instances, gathers = gf["instances"], gf["gathers"]
+    delta_instances, gathers, b2_instances = gf["instances"], gf["gathers"], gf["b2_instances"]
     del main_run, gf
     lm_err = phase_lm_kernel_checks(dev)
     lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
@@ -1480,8 +1586,25 @@ def main() -> int:
         "tiled": {"launches": delta_instances["tiled"],
                   "ptxas": ptxas_stats(report, "gram_free_kernelILb1EE")}}
     delta["gather_sizes"] = {str(b): n for b, n in gathers.items()}
+    # B2: both shapes on both instances and measures, the bound over the
+    # rows with a finite cover beside the all-rows bound, launches per instance
+    b2 = next(k for k in kernels if k["name"] == "fl_gains_gram_free")
+    b2["live_bound_ms"] = fl_timing["fl_gains_gram_free"]["live_bound_ms"]
+    b2["times"] = {key: {k: fl_timing[f"fl_gains_gram_free_{key}"][k]
+                         for k in ("ring", "tiled", "plain_ms", "product_ms", "bound_ms",
+                                   "bound_by", "live_rows", "live_bound_ms")}
+                   for key in ("path", "all_live")}
+    b2["instances"] = {
+        "ring": {"launches": b2_instances["ring"],
+                 "ptxas": ptxas_stats(report, "gram_free_ring_kernel"),
+                 "dynamic_smem_bytes": _build.function("fl_gains_gram_free_ring_smem_bytes", [])()},
+        "tiled": {"launches": b2_instances["tiled"],
+                  "ptxas": ptxas_stats(report, "gram_free_kernelILb0EE")}}
     spills = [v for k in (sim["ptxas"], delta["instances"]["small_b"]["ptxas"]) for v in k.values()]
+    spills.append(b2["instances"]["ring"]["ptxas"])
     log(f"similarity: {sim['ptxas']}, dynamic shared memory {sim['dynamic_smem_bytes']} bytes")
+    log(f"fl_gains_gram_free ring: {b2['instances']['ring']['ptxas']}, dynamic shared memory "
+        f"{b2['instances']['ring']['dynamic_smem_bytes']} bytes")
     log(f"fl_gains_gram_free_delta small-b: {delta['instances']['small_b']['ptxas']}, dynamic "
         f"shared memory up to {delta['instances']['small_b']['dynamic_smem_bytes']} bytes")
     assert all(v["spill_store_bytes"] == v["spill_load_bytes"] == 0 for v in spills), spills

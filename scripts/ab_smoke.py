@@ -1,0 +1,101 @@
+#!/usr/bin/env python3
+"""Run ``chip_smoke.py`` of two checkouts of the repo in turn on one card.
+
+    python3 scripts/ab_smoke.py PARENT CHANGE [--order PCCP] [--out build/ab_logs]
+
+PARENT and CHANGE are directories that each hold a checkout (for example
+``git archive <commit>`` unpacked); the runs go in ``--order`` (P for the
+parent, C for the change; the default P, C, C, P interleaves them, so that a
+drift of the card over the call shows in both).  Each checkout builds its own
+kernels into its own ``build/``.  Each run's whole output goes to
+``OUT/<i>_<P|C>.log``; this script prints, per run, the lines that compare
+two builds of the port: the gram-free gains kernel's times, the phase 5 and
+7 stage times, launches, accuracy and peak memory, and the SHA-256 of the
+importance and bank of every ``MiloMetadata`` artifact the run saves
+(phases 5 and 7).  The digests come from a hook on ``MiloMetadata.save`` set
+before the checkout's own smoke starts, so a checkout whose smoke prints no
+digest is compared the same way.  Exits non-zero if a run fails or if the
+runs' artifacts differ.
+"""
+from __future__ import annotations
+
+import argparse
+import hashlib
+import runpy
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# lines of a smoke's output that compare two builds
+KEYS = ("fl_gains_gram_free (8192, 8192, 768), ", "  on the card alone", "  bound over the",
+        "  SM clock", "similarity (2048, 5000, 768) float32 normalized=True: kernel", "== phase",
+        "preprocess ", "train ", "launches", "similarity launches", "full recomputes",
+        "max_memory_allocated", "sha256 of", "[ab] artifact", "similarity: {",
+        "fl_gains_gram_free ring: {", "total ")
+
+
+def run_smoke(tree: Path) -> None:
+    """Run ``tree``'s ``chip_smoke.py`` as ``__main__`` with the digest hook."""
+    import numpy as np
+
+    sys.path.insert(0, str(tree / "src"))
+    from repro_torch.core.metadata import MiloMetadata
+
+    save = MiloMetadata.save
+
+    def save_and_digest(self, path: str) -> None:
+        for name in ("wre_importance", "sge_subsets"):
+            arr = np.ascontiguousarray(getattr(self, name))
+            print(f"[ab] artifact {Path(path).name}: sha256 of {name} "
+                  f"{hashlib.sha256(arr.tobytes()).hexdigest()}", flush=True)
+        save(self, path)
+
+    MiloMetadata.save = save_and_digest
+    sys.argv = [str(tree / "chip_smoke.py")]
+    runpy.run_path(str(tree / "chip_smoke.py"), run_name="__main__")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("parent", type=Path, nargs="?")
+    ap.add_argument("change", type=Path, nargs="?")
+    ap.add_argument("--order", default="PCCP")
+    ap.add_argument("--out", type=Path, default=Path("build/ab_logs"))
+    ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)  # one run, in a child process
+    args = ap.parse_args()
+    if args.run:
+        run_smoke(args.run.resolve())
+        return 0
+    if args.parent is None or args.change is None or set(args.order) - {"P", "C"}:
+        ap.error("give PARENT and CHANGE, and an --order of P and C")
+    args.out.mkdir(parents=True, exist_ok=True)
+    digests: dict[str, set[str]] = {}
+    failed = False
+    for i, label in enumerate(args.order, 1):
+        tree = (args.parent if label == "P" else args.change).resolve()
+        log = args.out / f"{i}_{label}.log"
+        t0 = time.perf_counter()
+        with open(log, "w") as f:
+            rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--run", str(tree)],
+                                stdout=f, stderr=subprocess.STDOUT).returncode
+        lines = log.read_text().splitlines()
+        print(f"== run {i} {label} ({tree}): exit {rc}, {time.perf_counter() - t0:.0f} s, "
+              f"log {log}", flush=True)
+        for line in lines:
+            if line.startswith(KEYS):
+                print("  " + line[:400], flush=True)
+            if line.startswith("[ab] artifact"):
+                key, digest = line.rsplit(" ", 1)
+                digests.setdefault(key, set()).add(digest)
+        failed = failed or rc != 0
+    same = all(len(v) == 1 for v in digests.values())
+    for key, values in sorted(digests.items()):
+        print(f"{key}: {'the same in every run' if len(values) == 1 else 'DIFFERS: ' + str(values)}")
+    if not digests:
+        print("no artifact digests were printed")
+    return 1 if failed or not same or not digests else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

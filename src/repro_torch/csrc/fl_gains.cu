@@ -34,18 +34,40 @@
 //
 // Bounds on this card (H100 SXM, 67 TFLOP/s fp32, 3.35 TB/s):
 //   gram-free gains at (8192, 8192, 768): 2 * n * n_cand * d = 1.03e11 FLOP
-//     against ~50 MB moved -> bound by operations (~1.54 ms);
+//     against ~50 MB moved -> bound by operations (~1.54 ms; over the rows
+//     with a finite cover only, ~0.94 ms at the path's 5,000 of 8,192);
 //   delta at b touched rows: 2 * b * n_cand * d FLOP against the zc read
 //     (25 MB at 8192 x 768) -> bound by bytes below b ~ 40, by operations
 //     above (~0.19 ms at b = 1024);
 //   gains over a materialised (8192, 8192) K: 268 MB read -> bound by bytes
 //     (~80 us).
 //
-// Two designs.  The tiled kernel (B2, and B3 above b = 64): a 64 x 64
-// (rows x candidates) tile per step with both operands staged through
-// shared memory in 16-deep slabs.  The small-b instance of B3 (b <= 64, the
-// lazy engine's common gathers): the work is b dot products per candidate
-// and the bytes are zc's, so it streams zc at memory speed:
+// Three designs.  The tiled kernel (B3 above b = 64, and B2 where the ring
+// instance cannot address its inputs): a 64 x 64 (rows x candidates) tile
+// per step with both operands staged through shared memory in 16-deep slabs.
+// The ring instance of B2 (d % 4 == 0 and 16-byte-aligned z and zc: every
+// call of the lazy engine) is bound by operations, so it runs on the Gram
+// kernel's memory path and microtile (csrc/tile_ring.cuh, shared with
+// csrc/similarity.cu):
+//   * a block takes 128 candidates and one 256-row chunk: the chunk's two
+//     128-row tiles against the candidates, an 8 x 8 register microtile per
+//     thread (4 FMAs per float loaded from shared memory; the tiled kernel's
+//     4 x 4 gets 2);
+//   * the tiles' 32-deep k-slabs go through a 4-stage ring in dynamic shared
+//     memory (147,456 bytes, one block per SM), filled by 16-byte cp.async
+//     copies, one barrier per slab; the two tiles are one sequence of slabs,
+//     so the second tile's first slabs load while the first tile's last
+//     ones are computed;
+//   * a 128-row tile whose covers are all +inf adds relu(s - inf) = +0.f to
+//     every partial, which leaves every sum as it is, bit for bit: the block
+//     leaves its k-loop out.  The test is made from the chunk's covers, which
+//     the block loads anyway (one per thread; covers past n count as +inf).
+//     The bucketed gram-free path pads each 5,000-row class to 8,192 rows
+//     whose last 3,192 are such padding: 40 of the 64 row tiles are computed.
+//     A chunk with no finite cover writes +0.f.
+// The small-b instance of B3 (b <= 64, the lazy engine's common gathers): the
+// work is b dot products per candidate and the bytes are zc's, so it
+// streams zc at memory speed:
 //   * 32 candidates per block: 256 blocks at 8192 candidates, all resident
 //     at once (at most 104,448 bytes of dynamic shared memory each, at
 //     b = 64);
@@ -65,18 +87,22 @@
 //     time;
 //   * the b x 32 terms go to shared memory and are summed there in the
 //     tiled kernel's order (below).
-// Both instances give each candidate the same fp32 value, bit for bit: per
-// pair one fmaf chain over k in order from 0.f, s = 0.5f + 0.5f * acc, the
-// row term t_i = fmaxf(s - c_new_i, 0.f) - fmaxf(s - c_old_i, 0.f); in a
-// 256-row chunk, partial P_r (r < 16) adds t_r, t_{r+16}, t_{r+32}, ... to
-// 0.f in row order, and the chunk's value is ((P_0 + P_1) + ...) + P_15.
-// So b rows padded with +inf rows up to the next level (or the budget) give
-// the b rows' value whichever instance runs.  The small-b instance needs
-// d % 4 == 0 and 16-byte-aligned z and zc (cp.async's granule); a call
-// without them runs the tiled instance.
+// The two instances of each kernel give each candidate the same fp32 value,
+// bit for bit: per pair one fmaf chain over k in order from 0.f,
+// s = 0.5f + 0.5f * acc, the row term t_i = fmaxf(s - c_i, 0.f) (the delta:
+// fmaxf(s - c_new_i, 0.f) - fmaxf(s - c_old_i, 0.f)); in a 256-row chunk,
+// partial P_r (r < 16) adds t_r, t_{r+16}, t_{r+32}, ... to 0.f in row order,
+// and the chunk's value is ((P_0 + P_1) + ...) + P_15.  So b rows padded
+// with +inf rows up to the next level (or the budget) give the b rows' value
+// whichever instance runs.  The ring and small-b instances need d % 4 == 0
+// and 16-byte-aligned z and zc (cp.async's granule); each kernel's C entry
+// point picks its instance and reports the one it launched, and a call
+// without them runs the tiled kernel.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "tile_ring.cuh"
 
 namespace {
 
@@ -268,6 +294,132 @@ int launch_gram_free(const void* z, const void* zc, long long zc_bstride,
 }
 
 // ---------------------------------------------------------------------------
+// B2 on the Gram kernel's memory path: the ring instance
+// ---------------------------------------------------------------------------
+
+constexpr int RING_SMEM = ring128::smem_bytes<float>();  // 147,456 bytes
+
+static_assert(CHUNK == 2 * ring128::BM, "a chunk is two row tiles of the ring");
+static_assert(ring128::THREADS == CHUNK, "one thread loads each cover of the chunk");
+
+// The grid and output of gram_free_kernel<false>, with 128 candidates per
+// block: grid = (ceil(n_cand / 128), n_chunks, batch), writes
+// out[b, chunk, j].  Thread (ty, tx) carries its partial P_ty of candidate
+// col0 + tx + 16 j across both tiles of the chunk: its rows ty + 16 i of
+// the first tile, then of the second, in row order.
+__global__ void __launch_bounds__(ring128::THREADS, 1)
+gram_free_ring_kernel(const float* __restrict__ z, const float* __restrict__ zc,
+                      long long zc_bstride, const float* __restrict__ c, long long c_bstride,
+                      float* __restrict__ out, long long out_bstride, int n, int n_cand,
+                      int d) {
+  // the ring's geometry (this file's own BM, BN, ... are the tiled kernel's)
+  constexpr int BM = ring128::BM, BN = ring128::BN, BK = ring128::BK, TM = ring128::TM,
+                TN = ring128::TN, RS = ring128::RS, CS = ring128::CS,
+                STAGES = ring128::STAGES, STAGE = ring128::STAGE;
+  extern __shared__ __align__(16) float smem[];  // the ring; at the end, the partials
+  __shared__ float cov[CHUNK];
+
+  const int tid = threadIdx.x;
+  const int tx = tid % CS;
+  const int ty = tid / CS;
+  const int col0 = blockIdx.x * BN;
+  const int row_begin = blockIdx.y * CHUNK;
+  const int row_end = min(n, row_begin + CHUNK);
+  zc += blockIdx.z * zc_bstride;
+  c += blockIdx.z * c_bstride;
+
+  // the chunk's covers; a tile is live if one of its covers is not +inf
+  const int r = row_begin + tid;
+  const float cv = r < row_end ? c[r] : CUDART_INF_F;
+  cov[tid] = cv;
+  const bool live0 = __syncthreads_or(tid < BM && cv != CUDART_INF_F);
+  const bool live1 = __syncthreads_or(tid >= BM && cv != CUDART_INF_F);
+  const int first = live0 ? 0 : 1;           // the first live tile
+  const int nk = max(1, (d + BK - 1) / BK);  // d == 0: one zero-filled slab
+  const int total = (live0 + live1) * nk;    // the live tiles' slabs, in order
+
+  // slab s of that sequence: tile first + s / nk, k0 = (s % nk) * BK
+  auto fill = [&](int s) {
+    ring128::load_stage(smem + (s % STAGES) * STAGE, z, row_begin + (first + s / nk) * BM,
+                        row_end, zc, col0, n_cand, (s % nk) * BK, d);
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < total) fill(s);
+    ring128::copy_commit();  // even when empty: group s holds slab s
+  }
+
+  float acc[TM][TN];
+  float part[TN];
+#pragma unroll
+  for (int j = 0; j < TN; ++j) {
+    part[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) acc[i][j] = 0.f;
+  }
+
+  for (int s = 0; s < total; ++s) {
+    ring128::copy_wait<STAGES - 2>();  // this thread's copies of slab s have landed
+    __syncthreads();  // everyone's have, and everyone is done with slab s - 1
+    if (s + STAGES - 1 < total) fill(s + STAGES - 1);
+    ring128::copy_commit();
+    ring128::stage_fma(acc, smem + (s % STAGES) * STAGE, tx, ty);
+    if (s % nk == nk - 1) {
+      // the tile's last slab: its row terms into the partials, in row
+      // order (rows past row_end have cover +inf and add +0.f)
+      const float* tcov = cov + (first + s / nk) * BM;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float ci = tcov[ty + i * RS];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          const float sim = 0.5f + 0.5f * acc[i][j];
+          part[j] += fmaxf(sim - ci, 0.f);
+          acc[i][j] = 0.f;
+        }
+      }
+    }
+  }
+  ring128::copy_wait<0>();
+  __syncthreads();  // everyone is done with the ring
+
+  // the RS row partials of each candidate, added in ty order
+  float* red = smem;  // RS x BN
+#pragma unroll
+  for (int j = 0; j < TN; ++j) red[ty * BN + tx + j * CS] = part[j];
+  __syncthreads();
+  if (tid < BN && col0 + tid < n_cand) {
+    float sum = red[tid];
+#pragma unroll
+    for (int t = 1; t < RS; ++t) sum += red[t * BN + tid];
+    out[blockIdx.z * out_bstride + (long long)blockIdx.y * n_cand + col0 + tid] = sum;
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The ring instance takes every call whose rows cp.async can address.
+bool ring_instance(const void* z, const void* zc, int d) {
+  return d % 4 == 0 && aligned16(z) && aligned16(zc);
+}
+
+int launch_gram_free_ring(const void* z, const void* zc, long long zc_bstride, const void* c,
+                          long long c_bstride, void* out, void* scratch, int n, int n_cand,
+                          int d, int batch, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      gram_free_ring_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, RING_SMEM);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_chunks = n_chunks_of(n);
+  float* dst = static_cast<float*>(n_chunks == 1 ? out : scratch);
+  const dim3 grid((n_cand + ring128::BN - 1) / ring128::BN, n_chunks, batch);
+  gram_free_ring_kernel<<<grid, ring128::THREADS, RING_SMEM, stream>>>(
+      static_cast<const float*>(z), static_cast<const float*>(zc), zc_bstride,
+      static_cast<const float*>(c), c_bstride, dst, (long long)n_chunks * n_cand, n, n_cand, d);
+  return finish(static_cast<float*>(scratch), static_cast<float*>(out), n_chunks, n_cand,
+                batch, stream);
+}
+
+// ---------------------------------------------------------------------------
 // B3 at b <= SMALL_B: the small-b instance
 // ---------------------------------------------------------------------------
 
@@ -294,18 +446,6 @@ struct SmallB {
   static_assert(SB_STAGES * STAGE >= (BP + RS) * SB_CANDS, "the ring holds the terms");
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without the registers; zero-filled when !valid
-// (src-size 0: `src` is not read).
-__device__ __forceinline__ void copy16(uint32_t dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
 // Slab k0 of candidates [col0, col0 + 32) and of the touched rows, rows
 // [b, BP) zero-filled.
 template <int BP>
@@ -319,7 +459,8 @@ __device__ __forceinline__ void small_b_slab(float* st, const float* __restrict_
     const int row = cand ? col0 + r : r - SB_CANDS;
     const bool ok = (cand ? row < n_cand : row < b) && k0 + g < d;
     const float* src = cand ? zc : z;
-    copy16(smem_addr(st + r * SB_PITCH + g), ok ? src + (long long)row * d + k0 + g : src, ok);
+    ring128::copy4(ring128::smem_addr(st + r * SB_PITCH + g),
+                   ok ? src + (long long)row * d + k0 + g : src, ok);
   }
 }
 
@@ -427,8 +568,7 @@ delta_small_b_kernel(const float* __restrict__ z, const float* __restrict__ zc,
 }
 
 bool small_b(const void* z, const void* zc, int b, int d) {
-  return b <= SMALL_B && d % 4 == 0 && reinterpret_cast<uintptr_t>(z) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(zc) % 16 == 0;
+  return b <= SMALL_B && d % 4 == 0 && aligned16(z) && aligned16(zc);
 }
 
 template <int BP>
@@ -466,15 +606,25 @@ int launch_delta_small_b(const void* z, const void* zc, const void* c_old, const
 // returns cudaGetLastError() right after its launches: 0 means accepted.
 // Requires n >= 1, n_cand >= 1, batch >= 1 (the wrapper handles empties).
 
-// B2: out[b, j] = sum_i relu(0.5 + 0.5 <z_i, zc[b, j]> - c[b, i]).
+// B2: out[b, j] = sum_i relu(0.5 + 0.5 <z_i, zc[b, j]> - c[b, i]).  The
+// ring instance for d % 4 == 0 and 16-byte-aligned z and zc, else the tiled
+// one; the two agree bit for bit.  *ring_out is set to 1 if the ring
+// instance was launched, else 0.
 extern "C" int fl_gains_gram_free_f32(const void* z, const void* zc,
                                       long long zc_bstride, const void* c,
                                       long long c_bstride, void* out, void* scratch,
-                                      int n, int n_cand, int d, int batch,
+                                      int n, int n_cand, int d, int batch, int* ring_out,
                                       void* stream) {
+  *ring_out = ring_instance(z, zc, d) ? 1 : 0;
+  if (*ring_out)
+    return launch_gram_free_ring(z, zc, zc_bstride, c, c_bstride, out, scratch, n, n_cand, d,
+                                 batch, static_cast<cudaStream_t>(stream));
   return launch_gram_free<false>(z, zc, zc_bstride, c, nullptr, c_bstride, out,
                                  scratch, n, n_cand, d, batch, stream);
 }
+
+// Dynamic shared memory of the ring instance's launch.
+extern "C" int fl_gains_gram_free_ring_smem_bytes() { return RING_SMEM; }
 
 // B3: out[j] = sum_i relu(K_ij - c_new_i) - relu(K_ij - c_old_i) over the
 // b touched rows z (b, d), K_ij = 0.5 + 0.5 <z_i, zc_j>.  The small-b

@@ -19,20 +19,16 @@
 // Bound on this card (H100 SXM): at the main path's tile, 2*2048*5000*768 ~
 // 15.7 GFLOP against ~63 MB moved (inputs once, fp32 output once), i.e.
 // ~250 FLOP/byte — bound by operations at the 67 TFLOP/s fp32 CUDA-core
-// peak (~0.23 ms).  So the design keeps the FMA pipes fed:
+// peak (~0.23 ms).  So the design keeps the FMA pipes fed, on the memory
+// path and microtile of csrc/tile_ring.cuh (shared with the gram-free gains
+// kernel, whose tiles are bit-equal to these rows):
 //   * one 128 x 128 output tile per block of 256 threads; each thread owns
 //     an 8 x 8 register microtile at rows ty + 16 i and columns tx + 16 j,
 //     so a half-warp's epilogue stores are 16 consecutive floats;
 //   * k-slabs of 32 elements of both operands go through a 4-stage ring in
-//     shared memory, filled by cp.async (16-byte copies of 4 fp32, 8-byte
-//     copies of 4 bf16) that bypass the registers: the next three slabs are
-//     in flight while one is computed, behind one barrier per slab;
-//   * a slab keeps the rows' global layout (k contiguous) at a pitch of 36
-//     elements, and a thread reads 4 consecutive k of a row at once
-//     (LDS.128 for fp32, LDS.64 for bf16): per 4 k, 16 loads feed 256
-//     FFMAs.  The threads of one load phase read one row of the Zq slab
-//     (a broadcast) and 8 (bf16: 16) consecutive rows of the Zk slab, which
-//     the pitch of 9 load widths spreads over distinct banks;
+//     shared memory, filled by cp.async that bypasses the registers: the
+//     next three slabs are in flight while one is computed, behind one
+//     barrier per slab; per 4 k, 16 shared-memory loads feed 256 FFMAs;
 //   * 147,456 bytes of dynamic shared memory (fp32; 73,728 for bf16), one
 //     block per SM: 640 blocks at (2048, 5000), 4.85 waves on 132 SMs.
 // The copies zero-fill rows past mq / mk and k past d, so ragged edges add
@@ -45,87 +41,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tile_ring.cuh"
+
 namespace {
 
-constexpr int BM = 128;                    // output rows per block
-constexpr int BN = 128;                    // output columns per block
-constexpr int BK = 32;                     // k-slab depth
-constexpr int TM = 8;                      // output rows per thread
-constexpr int TN = 8;                      // output columns per thread
-constexpr int RS = BM / TM;                // 16: row stride between a thread's outputs
-constexpr int CS = BN / TN;                // 16: column stride between a thread's outputs
-constexpr int THREADS = RS * CS;           // 256
-constexpr int PITCH = BK + 4;              // slab row pitch (elements)
-constexpr int STAGES = 4;                  // slabs in the ring
-constexpr int GRANULES = BK / 4;           // 4-element copies per slab row
+using namespace ring128;
 
 static_assert(THREADS == BM + BN, "normalized == 0: one thread per row of either slab");
-static_assert(BM * GRANULES == 4 * THREADS && BN * GRANULES == 4 * THREADS,
-              "each thread issues 4 copies per operand per slab");
-
-template <typename T>
-constexpr int smem_bytes() {
-  return STAGES * (BM + BN) * PITCH * static_cast<int>(sizeof(T));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4 elements global -> shared without the registers; zero-filled when !valid
-// (src-size 0: `src` is not read).
-__device__ __forceinline__ void copy4(uint32_t dst, const float* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void copy4(uint32_t dst, const __nv_bfloat16* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void copy_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-// Wait until at most N of this thread's copy groups are still in flight.
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// 4 consecutive elements of a slab row, as fp32 (bf16 -> fp32 is exact:
-// the bf16 bits are the upper half of the float).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
-                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
-}
-
-// Rows [r0, r0 + 128) and k in [k0, k0 + BK) of a row-major (m, d) matrix
-// into the slab at `dst`.
-template <typename T>
-__device__ __forceinline__ void load_slab(T* dst, const T* __restrict__ src, int r0, int m,
-                                          int k0, int d) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int e = threadIdx.x + q * THREADS;
-    const int r = e / GRANULES;
-    const int g = (e % GRANULES) * 4;
-    const bool ok = r0 + r < m && k0 + g < d;
-    copy4(smem_addr(dst + r * PITCH + g), ok ? src + (long long)(r0 + r) * d + k0 + g : src,
-          ok);
-  }
-}
 
 template <typename T, bool NORMALIZED>
 __global__ void __launch_bounds__(THREADS, 1)
 similarity_kernel(const T* __restrict__ zq, const T* __restrict__ zk,
                   float* __restrict__ out, int mq, int mk, int d, long long ldo) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const ring = reinterpret_cast<T*>(smem_raw);  // per stage: Zq slab, then Zk slab
+  T* const smem = reinterpret_cast<T*>(smem_raw);  // the ring; per stage: Zq slab, then Zk slab
   __shared__ float inv_q[BM];
   __shared__ float inv_k[BN];
 
@@ -140,11 +69,7 @@ similarity_kernel(const T* __restrict__ zq, const T* __restrict__ zk,
   // that group kt always holds slab kt
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) {
-      T* a = ring + s * (BM + BN) * PITCH;
-      load_slab(a, zq, row0, mq, s * BK, d);
-      load_slab(a + BM * PITCH, zk, col0, mk, s * BK, d);
-    }
+    if (s < nk) load_stage(smem + s * STAGE, zq, row0, mq, zk, col0, mk, s * BK, d);
     copy_commit();
   }
 
@@ -161,14 +86,11 @@ similarity_kernel(const T* __restrict__ zq, const T* __restrict__ zk,
     copy_wait<STAGES - 2>();  // this thread's copies of slab kt have landed
     __syncthreads();          // everyone's have, and everyone is done with slab kt - 1
     const int next = kt + STAGES - 1;
-    if (next < nk) {          // refill the stage slab kt - 1 used
-      T* a = ring + (next % STAGES) * (BM + BN) * PITCH;
-      load_slab(a, zq, row0, mq, next * BK, d);
-      load_slab(a + BM * PITCH, zk, col0, mk, next * BK, d);
-    }
+    if (next < nk)            // refill the stage slab kt - 1 used
+      load_stage(smem + (next % STAGES) * STAGE, zq, row0, mq, zk, col0, mk, next * BK, d);
     copy_commit();
 
-    const T* As = ring + (kt % STAGES) * (BM + BN) * PITCH;
+    const T* As = smem + (kt % STAGES) * STAGE;
     const T* Bs = As + BM * PITCH;
     if (!NORMALIZED) {
       const T* own = tid < BM ? As + tid * PITCH : Bs + (tid - BM) * PITCH;
@@ -181,24 +103,7 @@ similarity_kernel(const T* __restrict__ zq, const T* __restrict__ zk,
         ss = fmaf(v.w, v.w, ss);
       }
     }
-#pragma unroll
-    for (int g = 0; g < BK; g += 4) {
-      float4 b[TN];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = load4(Bs + (tx + j * CS) * PITCH + g);
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const float4 a = load4(As + (ty + i * RS) * PITCH + g);
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
-      }
-    }
+    stage_fma(acc, As, tx, ty);
   }
 
   if (!NORMALIZED) {

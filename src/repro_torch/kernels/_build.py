@@ -3,8 +3,9 @@
 Every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) by its own ``nvcc``
 process, all started together, and linked into one
 ``build/kernels/libreprotorch_<hash>.so`` at the repo root, where the hash
-covers the sources and the flags — an edited source builds anew, an
-unchanged one is reused.  Each source exposes plain C entry points, so no
+covers the flags and every file under ``csrc/`` — the sources and the
+headers they include — so an edited source or header builds anew, an
+unchanged tree is reused.  Each source exposes plain C entry points, so no
 PyTorch header is compiled (seconds, not minutes) and the library is loaded
 with ``ctypes``.  Nothing here runs at import: the first kernel launch
 builds, so the CPU tests import every module without ``nvcc``.
@@ -33,6 +34,7 @@ _declared: set[str] = set()
 
 
 def sources() -> list[Path]:
+    """The files ``nvcc`` compiles: ``csrc/*.cu`` (headers are included)."""
     return sorted(CSRC.glob("*.cu"))
 
 
@@ -46,11 +48,12 @@ def _nvcc() -> str:
     return path
 
 
-def _digest(srcs: list[Path]) -> str:
+def _digest() -> str:
+    """Hash of the flags and of every file under ``csrc/``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
+    for f in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(f.relative_to(CSRC).as_posix().encode())
+        h.update(f.read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -58,7 +61,7 @@ def build() -> tuple[Path, str]:
     """Compile the library unless this exact build exists; returns its path
     and the compiler's report (``-Xptxas -v`` output of every source)."""
     srcs = sources()
-    lib = BUILD_DIR / f"libreprotorch_{_digest(srcs)}.so"
+    lib = BUILD_DIR / f"libreprotorch_{_digest()}.so"
     log = lib.with_suffix(".log")
     if lib.exists():
         return lib, log.read_text() if log.exists() else ""

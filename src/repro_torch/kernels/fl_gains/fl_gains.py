@@ -17,15 +17,20 @@ Every candidate's sum follows a fixed order over the ground rows (see the
 source), so repeated launches are bit-identical and a candidate's gain does
 not depend on the other candidates of the launch.
 
-The delta has two instances, chosen inside its C entry point: a small-b
-one for b ≤ 64 touched rows (the lazy engine's common gathers) that streams
-``zc`` at memory speed, and the tiled one for larger b.  Both give the same
-value bit for bit; the entry point reports which one it launched.
+The gram-free gains and the delta have two instances each, chosen inside
+their C entry points.  The gram-free gains run the ring instance (the Gram
+kernel's 128×128 tiles and ``cp.async`` ring, 256-row chunks whose covers
+are all ``+inf`` left out) when ``d % 4 == 0`` and ``z`` and ``zc`` are
+16-byte aligned, else the tiled one.  The delta runs a small-b instance for
+b ≤ 64 touched rows (the lazy engine's common gathers) that streams ``zc``
+at memory speed under the same alignment rule, else the tiled one.  The two
+instances of a kernel give the same value bit for bit; each entry point
+reports which one it launched.
 
 ``launches`` counts, per kernel, the calls that launched it, and
-``delta_launches`` the delta's launches per instance, as the C entry point
-reported them; set the entries to 0 before a run to read how many that run
-made.
+``gram_free_launches`` and ``delta_launches`` the launches per instance, as
+the C entry points reported them; set the entries to 0 before a run to read
+how many that run made.
 """
 from __future__ import annotations
 
@@ -36,12 +41,14 @@ import torch
 from repro_torch.kernels import _build
 
 launches = {"fl_gains": 0, "fl_gains_gram_free": 0, "fl_gains_gram_free_delta": 0}
+gram_free_launches = {"ring": 0, "tiled": 0}
 delta_launches = {"small_b": 0, "tiled": 0}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "fl_gains_f32": [_P, _L, _L, _P, _L, _P, _P, _I, _I, _I, _P],
-    "fl_gains_gram_free_f32": [_P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I, _P],
+    "fl_gains_gram_free_f32": [_P, _P, _L, _P, _L, _P, _P, _I, _I, _I, _I,
+                               ctypes.POINTER(_I), _P],
     "fl_gains_gram_free_delta_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                      ctypes.POINTER(_I), _P],
 }
@@ -107,11 +114,13 @@ def fl_gains_gram_free_cuda(z: torch.Tensor, zc: torch.Tensor, c: torch.Tensor) 
     batch = _batch(name, n, c, zc, 3)
     out, scratch = _outputs(z.device, max(batch, 1), n, n_cand)
     if n_cand and n:
+        ring = _I()
         _run("fl_gains_gram_free_f32",
              [z.data_ptr(), zc.data_ptr(), n_cand * d if zc.dim() == 3 else 0,
               c.data_ptr(), n if c.dim() == 2 else 0, out.data_ptr(), _ptr(scratch),
-              n, n_cand, d, max(batch, 1)], z.device)
+              n, n_cand, d, max(batch, 1), ctypes.byref(ring)], z.device)
         launches["fl_gains_gram_free"] += 1
+        gram_free_launches["ring" if ring.value else "tiled"] += 1
     else:
         out.zero_()
     return out if batch else out[0]

@@ -323,6 +323,118 @@ def test_delta_instances_bit_equal_across_the_edge(cuda_device, b):
 
 
 # ---------------------------------------------------------------------------
+# B2's ring instance against its tiled instance, bit for bit: the tiled
+# instance is reached by a z 4 bytes off 16-byte alignment or by d % 4 != 0
+# ---------------------------------------------------------------------------
+
+
+def _gram_free(z, zc, c):
+    """B2's gains and the instance its C entry point reported launching."""
+    before = dict(fl_kernel.gram_free_launches)
+    out = fl_ops.fl_gains_gram_free(z, zc, c)
+    return out, [k for k in before if fl_kernel.gram_free_launches[k] - before[k] == 1]
+
+
+def _ring_equals_tiled(z, zc, c):
+    """B2 on the ring instance, held bit-equal to the tiled instance on a
+    misaligned copy of z; returns the ring instance's gains."""
+    ring, inst = _gram_free(z, zc, c)
+    assert inst == ["ring"]
+    tiled, inst = _gram_free(_misaligned(z), zc, c)
+    assert inst == ["tiled"]
+    assert torch.equal(ring, tiled)
+    return ring
+
+
+def _dead(c, rows):
+    """A copy of the covers ``c`` ([B,] n) with ``rows`` set to +inf."""
+    c = c.clone()
+    c[..., rows] = float("inf")
+    return c
+
+
+# (n, n_cand, d): n = 1 (as ``_tiles`` calls it), one chunk (n <= 256: no
+# scratch), several chunks with a ragged last tile; ragged n_cand against the
+# 128 candidates of a block; d = 36 and 100 run past a 32-deep slab and end
+# in a partial one, 768 is the path's depth
+B2_SHAPES = [(1, 1, 36), (1, 300, 100), (200, 517, 36), (256, 130, 100), (257, 129, 36),
+             (700, 333, 100), (1000, 1000, 768)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_cand,d", B2_SHAPES)
+def test_gram_free_ring_instance_equals_tiled(cuda_device, n, n_cand, d):
+    rng = np.random.default_rng(n + 3 * n_cand + d)
+    z, zc, c, _ = _fl_inputs(rng, n, n_cand, d, cuda_device)
+    out = _ring_equals_tiled(z, zc, c)
+    np.testing.assert_allclose(out.cpu().numpy(),
+                               fl_ref.fl_gains_gram_free_ref(z, zc, c).cpu().numpy(), **_fl_tol(n))
+
+
+@pytest.mark.cuda
+def test_gram_free_tiled_instance_at_odd_depth_equals_ring_on_padded_rows(cuda_device):
+    """d = 37 takes the tiled instance; the same rows zero-padded to d = 40
+    take the ring instance and give the same bits (zero k add fmaf(0, 0,
+    acc) = acc)."""
+    rng = np.random.default_rng(37)
+    z, zc, c, _ = _fl_inputs(rng, 700, 333, 37, cuda_device)
+    odd, inst = _gram_free(z, zc, c)
+    assert inst == ["tiled"]
+    pad = torch.nn.functional.pad
+    even, inst = _gram_free(pad(z, (0, 3)), pad(zc, (0, 3)), c)
+    assert inst == ["ring"]
+    assert torch.equal(odd, even)
+
+
+# all-+inf 128-row tiles (rows) in a ground set of 1280 rows (5 chunks of two
+# tiles): the first tile of a chunk with live rows after it, a chunk's last
+# tile, a whole chunk, the bucketed padding past 1000 live rows (zero rows at
+# +inf, as the gram-free path pads a class), all of these at once, and a run
+# of +inf rows that covers no whole tile (nothing is left out)
+DEAD = {"chunk_first_tile": list(range(256, 384)), "chunk_last_tile": list(range(640, 768)),
+        "whole_chunk": list(range(512, 768)), "bucket_padding": list(range(1000, 1280)),
+        "all": list(range(256, 384)) + list(range(512, 768)) + list(range(1000, 1280)),
+        "no_whole_tile": list(range(300, 500))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("placement", sorted(DEAD))
+def test_gram_free_ring_instance_leaves_out_dead_tiles_exactly(cuda_device, placement):
+    """The ring instance leaves out the k-loop of a tile whose covers are all
+    +inf; the tiled instance contracts it.  Both agree bit for bit, with the
+    plain fixed-order sum over B2's tile values, with gains_at and with each
+    cover of a batch (a shared and a batched zc) run alone."""
+    rng = np.random.default_rng(len(DEAD[placement]))
+    n, d = 1280, 100
+    z, _, c, _ = _fl_inputs(rng, n, 1, d, cuda_device)
+    rows = torch.tensor(DEAD[placement], device=cuda_device)
+    if placement in ("bucket_padding", "all"):
+        z[1000:] = 0.0
+    c = _dead(c, rows)
+    full = _ring_equals_tiled(z, z, c)
+    K = _tiles(z, z)
+    assert torch.equal(fl_ref.delta_order_sum(torch.relu(K - c[:, None]).cpu()), full.cpu())
+    cand = torch.tensor([1279, 0, 5, 5, 300, 1000, 999, 128, 127], device=cuda_device)
+    assert torch.equal(_ring_equals_tiled(z, z[cand], c), full[cand])
+    covers = torch.stack([c, _dead(c, torch.arange(0, 384, device=cuda_device))])
+    shared = _ring_equals_tiled(z, z[cand], covers)
+    batched = _ring_equals_tiled(z, torch.stack([z[cand], z[cand.flip(0)]]), covers)
+    assert torch.equal(shared[0], full[cand]) and torch.equal(batched[0], full[cand])
+    assert torch.equal(shared[1], _ring_equals_tiled(z, z[cand], covers[1]))
+    assert torch.equal(batched[1], _ring_equals_tiled(z, z[cand.flip(0)], covers[1]))
+
+
+@pytest.mark.cuda
+def test_gram_free_chunk_without_a_finite_cover_is_plus_zero(cuda_device):
+    """A ground set whose covers are all +inf: every chunk is left out and
+    writes +0.f, as the tiled instance sums its exact zeros."""
+    rng = np.random.default_rng(5)
+    z, zc, c, _ = _fl_inputs(rng, 600, 200, 36, cuda_device)
+    out = _ring_equals_tiled(z, zc, torch.full_like(c, float("inf")))
+    assert not out.any() and not torch.signbit(out).any()
+
+
+# ---------------------------------------------------------------------------
 # flash attention (csrc/flash_attention.cu) and the SSD chunk
 # (csrc/ssd_chunk.cu) against their plain versions
 # ---------------------------------------------------------------------------

@@ -177,18 +177,31 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_the_kernels_source_entry_points_match_the_bindings():
     """Every ctypes binding names a C entry point of ``csrc/fl_gains.cu``
-    with as many parameters as it declares, and every entry point there is
-    a binding or the small-b launch's shared-memory report."""
+    with its parameters' kinds in order — pointers (the instance reports of
+    B2 and B3 as ``int*``), ints, long longs — and every entry point there
+    is a binding or a launch's shared-memory report."""
+    import ctypes
     import re
     from pathlib import Path
 
     src = (Path(tkern.__file__).parents[2] / "csrc" / "fl_gains.cu").read_text()
-    entries = {name: [p for p in params.split(",") if p.strip()]
+    entries = {name: [p.strip() for p in params.split(",") if p.strip()]
                for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src)}
+
+    def kind(param: str):
+        if re.match(r"int\s*\*", param):
+            return ctypes.POINTER(ctypes.c_int)
+        if "*" in param:
+            return ctypes.c_void_p
+        return ctypes.c_longlong if param.startswith("long long") else ctypes.c_int
+
     for name, argtypes in tkern._ARGTYPES.items():
         assert name in entries, name
-        assert len(entries[name]) == len(argtypes), name
-    assert set(entries) == set(tkern._ARGTYPES) | {"fl_gains_gram_free_delta_small_b_smem_bytes"}
+        assert [kind(p) for p in entries[name]] == argtypes, name
+    assert entries["fl_gains_gram_free_f32"][-2] == "int* ring_out"
+    assert entries["fl_gains_gram_free_delta_f32"][-2] == "int* small_b_out"
+    assert set(entries) == set(tkern._ARGTYPES) | {"fl_gains_gram_free_ring_smem_bytes",
+                                                   "fl_gains_gram_free_delta_small_b_smem_bytes"}
     assert importlib.import_module("repro_torch.kernels.fl_gains.ops") is tops
 
 
@@ -257,3 +270,51 @@ def test_small_b_instance_edge_is_a_gather_level():
         assert edge in greedy._gather_levels(budget)
     assert f"instance for b <= {edge}, d % 4 == 0" in src
     assert f"b ≤ {edge} touched rows" in tkern.__doc__
+
+
+# ---------------------------------------------------------------------------
+# B2's ring instance leaves out the k-loop of a 128-row tile whose covers are
+# all +inf: the fixed-order sum over B2's terms relu(K - c) is the same, bit
+# for bit, when those tiles' rows are not added at all
+# ---------------------------------------------------------------------------
+
+def _order_sum_without(terms, dropped):
+    """The kernels' fixed order (``ref.delta_order_sum``) over the rows of
+    ``terms`` (n, m) that are not in the 128-row tiles ``dropped``: those rows
+    are never added, and a chunk with no row left is +0."""
+    n, m = terms.shape
+    total = torch.zeros(m)
+    for lo in range(0, n, 256):
+        part = torch.zeros((16, m))
+        for row in range(lo, min(n, lo + 256)):
+            if row // 128 not in dropped:
+                part[(row - lo) % 16] = part[(row - lo) % 16] + terms[row]
+        value = part[0]
+        for r in range(1, 16):
+            value = value + part[r]
+        total = value if lo == 0 else total + value
+    return total
+
+
+# all-+inf 128-row tiles of 1280 rows (5 chunks of two tiles), as the card
+# tests place them: a chunk's first tile, a chunk's last tile, a whole
+# chunk, the bucketed padding past 1000 live rows, and all of these at once
+DROPPED = {"chunk_first_tile": {2}, "chunk_last_tile": {5}, "whole_chunk": {4, 5},
+           "bucket_padding": {8, 9}, "all": {2, 4, 5, 8, 9}}
+
+
+@pytest.mark.parametrize("placement", sorted(DROPPED))
+def test_order_sum_is_unchanged_when_all_inf_tiles_are_dropped(placement):
+    z, zc, c, _ = _t(*_inputs(1280, 40, 16, len(placement)))
+    dead = sorted(DROPPED[placement])
+    for t in dead:
+        c[128 * t:128 * (t + 1)] = float("inf")
+    if placement in ("bucket_padding", "all"):
+        z[1000:] = 0.0
+        c[1000:] = float("inf")
+    terms = torch.relu(tref._sim(z, zc) - c[:, None])
+    full = tref.delta_order_sum(terms)
+    assert torch.equal(_order_sum_without(terms, set(dead)), full)
+    assert torch.equal(_order_sum_without(terms, set()), full), "the emulation is the order"
+    np.testing.assert_allclose(full.numpy(), tref.fl_gains_gram_free_ref(z, zc, c).numpy(),
+                               rtol=1e-4, atol=1280 * 2.0**-20)
