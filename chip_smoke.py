@@ -43,10 +43,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
     serving path's shapes (yi-6b's and Jamba's heads at S 2048 and 1537,
     cross-length, non-causal, one query; Jamba's chunk, a ragged scan, two
     chunks composed), repeated launches bit-equal; the bf16 flash kernel's
-    worst error beside the CUDA-core kernel's (3.9e-3), held at 1e-2.
+    worst error beside the CUDA-core kernel's (3.9e-3), held at 1e-2; every
+    SSD chunk call on its mma instance (3xTF32 on the tensor cores), and
+    its simt instance on the same chunk and scan through a misaligned x;
+    the tensor cores' f32 sum (one ``mma.sync`` a tile) against its model
+    ``kernels/ssd_chunk/tf32.py``, bit for bit.
 11. their times beside their plain versions, their bounds and, for flash
     attention, ``scaled_dot_product_attention`` as the library yardstick,
-    with its TFLOP/s and share of the bound at each shape.
+    with its TFLOP/s and share of the bound at each shape; the SSD chunk
+    also on the card alone, beside its simt instance (the kernel the mma
+    one replaced, through a misaligned x) on both measures, against the
+    f32 bound and the bound of the split's own route, with the SM clock
+    while it runs.
 12. the LM serving path on yi-6b at full width and depth (bf16, random
     weights, ``attention_impl="pallas"``): ``ServeEngine(max_batch=4,
     max_len=2304)`` serves 8 requests of 256-2048 prompt tokens, 32 new
@@ -55,8 +63,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
     12-13 make no copy for the bf16 flash kernel's TMA maps.
 13. the same traffic on one period of Jamba's pattern (8 layers: 1 attention
     and 7 Mamba, 4 MoE) at published widths with 8 of its 16 experts
-    (``ssm_impl="pallas"`` too); then the kernel route against the plain
-    route on request 0, with the tokens whose experts changed counted.
+    (``ssm_impl="pallas"`` too), every SSD chunk launch on the mma
+    instance; then the kernel route against the plain route on request 0,
+    with the tokens whose experts changed counted.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
@@ -87,6 +96,7 @@ ROOT = Path(__file__).resolve().parent
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES = 3.35e12
 TOL = {torch.float32: dict(rtol=1e-4, atol=2e-4),   # the reference's kernel tolerances
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}  # (tests/test_kernels.py)
@@ -1049,6 +1059,16 @@ def ssd_bound_ms(L: int, H: int, P: int, N: int) -> tuple[float, str]:
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ssd_split_bound_ms(L: int, H: int, P: int, N: int) -> tuple[float, str]:
+    """Least time on the mma instance's own route: its three TF32 products
+    for each of ``ssd_bound_ms``'s at the tensor cores' TF32 peak, or the
+    same bytes."""
+    flops = 3 * (2.0 * L * L * N + L * (L + 1) * H * P + 4.0 * L * N * H * P)
+    nbytes = 4.0 * (2 * L * H * P + L * H + 2 * L * N + 2 * H * N * P)
+    t_ops, t_bytes = flops / PEAK_TF32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def ssd_inputs(gen, B, S, H, P, N, dev):
     """Decays in [0.6, 1) (as the reference's kernel tests draw them)."""
     x = torch.randn((B, S, H, P), generator=gen, device=dev)
@@ -1068,6 +1088,7 @@ def phase_lm_kernel_checks(dev) -> dict[str, float]:
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
     from repro_torch.kernels.ssd_chunk import ops as ssd_ops
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref, ssd_scan_ref
     from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_cuda
 
@@ -1099,6 +1120,7 @@ def phase_lm_kernel_checks(dev) -> dict[str, float]:
     assert worst_bf16 <= 1e-2, worst_bf16
 
     L, H, P, N = 256, 256, 64, 128      # Jamba's chunk: d_inner 16,384 in 256 heads of 64
+    ssd_before = (sc.launches, dict(sc.instance_launches))
     x, a, b, c, h = ssd_inputs(gen, 1, 2 * L, H, P, N, dev)
     one = [t[:, :L] for t in (x, a, b, c)]
     y, h1 = ssd_chunk_cuda(*one, h)
@@ -1136,7 +1158,49 @@ def phase_lm_kernel_checks(dev) -> dict[str, float]:
     for name, o, r in (("y", ys, ys_r), ("final state", hs, hs_r)):
         err = _check(f"ssd_scan S 1537 (a ragged last chunk): {name}", o, r, SSD_TOL)
         worst["ssd_chunk"] = max(worst["ssd_chunk"], err)
+    ran = {k: v - ssd_before[1][k] for k, v in sc.instance_launches.items()}
+    log(f"ssd_chunk: {sc.launches - ssd_before[0]} launches at the path's shapes, per instance {ran}; "
+        f"max_abs_err {worst['ssd_chunk']:.3e}")
+    assert ran == {"mma": sc.launches - ssd_before[0], "simt": 0}, ran
+    # the simt instance (every call cp.async cannot address) on the same
+    # inputs through a copy of x 4 bytes off 16-byte alignment
+    simt_before = sc.instance_launches["simt"]
+    worst["ssd_chunk_simt"] = 0.0
+    for name, o, r in zip(("y", "h_out"), ssd_chunk_cuda(misaligned(one[0]), *one[1:], h), (y_r, h_r)):
+        err = _check(f"ssd_chunk simt instance (1, {L}, {H}, {P}), N {N}: {name}", o, r, SSD_TOL)
+        worst["ssd_chunk_simt"] = max(worst["ssd_chunk_simt"], err)
+    for name, o, r in zip(("y", "final state"), ssd_ops.ssd_scan(misaligned(xs), as_, bs, cs, chunk=L),
+                          (ys_r, hs_r)):
+        err = _check(f"ssd_scan S 1537 on the simt instance: {name}", o, r, SSD_TOL)
+        worst["ssd_chunk_simt"] = max(worst["ssd_chunk_simt"], err)
+    assert sc.instance_launches["simt"] - simt_before == 8, sc.instance_launches
+    log(f"ssd_chunk simt instance: max_abs_err {worst['ssd_chunk_simt']:.3e} over the same checks")
+    phase_tensor_core_sum(dev)
     return worst
+
+
+def phase_tensor_core_sum(dev) -> None:
+    """The tensor cores' f32 sum, through the kernel library's one-mma probe,
+    against its model ``tf32.mma_sum`` bit for bit, and against the exact
+    sum rounded to nearest (which it is not)."""
+    from repro_torch.kernels.ssd_chunk import tf32
+    from repro_torch.kernels.ssd_chunk.ssd_chunk import mma_probe_cuda
+
+    rng = np.random.default_rng(10)
+    T, same, nearest, below, total = 2048, 0, 0, 0, 0
+    for scale_c in (1.0, 100.0, 0.0):
+        a, b = (tf32.tf32(rng.normal(size=s).astype(np.float32)) for s in ((T, 16, 8), (T, 8, 8)))
+        c = (scale_c * rng.normal(size=(T, 16, 8))).astype(np.float32)
+        d = mma_probe_cuda(*(torch.from_numpy(u).to(dev) for u in (a, b, c))).cpu().numpy()
+        exact = np.einsum("tik,tkj->tij", a.astype(np.float64), b.astype(np.float64)) + c
+        same += int((d.view(np.uint32) == tf32.mma_sum(a, b, c).view(np.uint32)).sum())
+        nearest += int((d == exact.astype(np.float32)).sum())
+        below += int((np.abs(d) < np.abs(exact)).sum())
+        total += d.size
+    log(f"mma.sync TF32 sums (one k-step plus c, {total} of them): {same} equal the model "
+        f"tf32.mma_sum bit for bit (terms cut toward zero to 2^(E - 25), the sum rounded toward zero); "
+        f"{nearest} equal the exact sum rounded to nearest, {below} lie below it in magnitude")
+    assert same == total, (same, total)
 
 
 def phase_lm_kernel_timing(dev, smi: str) -> dict[str, dict]:
@@ -1146,6 +1210,7 @@ def phase_lm_kernel_timing(dev, smi: str) -> dict[str, dict]:
 
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import gqa_attention_ref
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
     from repro_torch.kernels.ssd_chunk.ref import ssd_chunk_ref
     from repro_torch.kernels.ssd_chunk.ssd_chunk import ssd_chunk_cuda
 
@@ -1173,13 +1238,33 @@ def phase_lm_kernel_timing(dev, smi: str) -> dict[str, dict]:
 
     L, H, P, N = 256, 256, 64, 128
     x, a, b, c, h = ssd_inputs(gen, 1, L, H, P, N, dev)
+    x_off = misaligned(x)
+    for args, want in (((x, a, b, c, h), "mma"), ((x_off, a, b, c, h), "simt")):
+        before = dict(sc.instance_launches)
+        ssd_chunk_cuda(*args)
+        assert sc.instance_launches[want] == before[want] + 1, (want, sc.instance_launches)
     ms = cuda_ms(lambda: ssd_chunk_cuda(x, a, b, c, h))
+    alone = queued_ms(lambda: ssd_chunk_cuda(x, a, b, c, h))
+    simt = dict(ms=cuda_ms(lambda: ssd_chunk_cuda(x_off, a, b, c, h)),
+                alone_ms=queued_ms(lambda: ssd_chunk_cuda(x_off, a, b, c, h)))
     plain = cuda_ms(lambda: ssd_chunk_ref(x, a, b, c, h), iters=5)
-    bound = ssd_bound_ms(L, H, P, N)
+    bound, split = ssd_bound_ms(L, H, P, N), ssd_split_bound_ms(L, H, P, N)
     log(f"ssd_chunk jamba (1, {L}, {H}, {P}), N {N}: kernel {ms:.4f} ms  plain {plain:.4f} ms  "
         f"bound {bound[0]:.4f} ms ({bound[1]})  library: none (no one PyTorch call)  [{smi}]")
+    log(f"  ssd_chunk mma instance on the card alone {alone:.4f} ms; simt instance (the kernel the "
+        f"mma one replaced, through a misaligned x) {simt['ms']:.4f} ms, on the card alone "
+        f"{simt['alone_ms']:.4f} ms; mma {simt['ms'] / ms:.2f}x / {simt['alone_ms'] / alone:.2f}x "
+        f"faster")
+    log(f"  ssd_chunk bounds: f32 {bound[0]:.4f} ms ({bound[0] / ms:.1%} of the time as issued, "
+        f"{bound[0] / alone:.1%} alone); the split's own route, 3 TF32 products each at "
+        f"{PEAK_TF32_FLOPS / 1e12:.0f} TFLOP/s, {split[0]:.4f} ms ({split[1]}; {split[0] / ms:.1%} "
+        f"as issued, {split[0] / alone:.1%} alone)")
+    mhz, top = sm_clock_mhz(lambda: ssd_chunk_cuda(x, a, b, c, h))
+    log(f"  ssd_chunk SM clock while the mma instance runs {mhz:.0f} MHz (max {top:.0f})")
     out["ssd_chunk"] = dict(ms=ms, plain_ms=plain, bound_ms=bound[0], bound_by=bound[1],
-                            library_ms=None)
+                            library_ms=None, alone_ms=alone, simt=simt,
+                            split_bound_ms=split[0], split_bound_by=split[1],
+                            sm_clock_mhz=mhz, max_sm_clock_mhz=top)
     return out
 
 
@@ -1191,8 +1276,9 @@ def _reset_launches() -> None:
     from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
 
     sk.launches = fa.launches = sc.launches = 0
-    for key in fk.launches:
-        fk.launches[key] = 0
+    for counts in (fk.launches, sc.instance_launches):
+        for key in counts:
+            counts[key] = 0
 
 
 def _sync(dev) -> None:
@@ -1262,7 +1348,8 @@ def phase_serve(dev, cfg, label: str, prompts, *, new_tokens: int, max_batch: in
         wall = time.perf_counter() - t0
     finally:
         lm.prefill, lm.decode_step = originals["prefill"], originals["decode"]
-    launches = {"flash_attention": fa.launches, "ssd_chunk": sc.launches}
+    launches = {"flash_attention": fa.launches, "ssd_chunk": sc.launches,
+                "ssd_chunk_instances": dict(sc.instance_launches)}
     copies = fa_ops.copies
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
     decoded = sum(len(r.generated) - 1 for r in done)
@@ -1273,7 +1360,8 @@ def phase_serve(dev, cfg, label: str, prompts, *, new_tokens: int, max_batch: in
         f"{decoded} tokens decoded in {sum(times['decode']):.3f} s = "
         f"{decoded / sum(times['decode']):.1f} tokens/s")
     log(f"  launches: flash_attention {launches['flash_attention']}, ssd_chunk "
-        f"{launches['ssd_chunk']}; copies for the flash kernel's TMA maps {copies}; "
+        f"{launches['ssd_chunk']} (per instance {launches['ssd_chunk_instances']}); copies for "
+        f"the flash kernel's TMA maps {copies}; "
         f"max_memory_allocated {peak if peak is None else f'{peak / 2**30:.2f} GiB'}")
     assert copies == 0, "the serving path hands the bf16 flash kernel views it takes in place"
     assert sorted(r.rid for r in done) == list(range(len(prompts)))
@@ -1453,14 +1541,17 @@ def phase_lm_serving(dev, *, rehearsal: bool) -> dict:
         f"= {expected}; flash_attention expected {len(prompts)}")
     if dev.type == "cuda":
         assert run["launches"]["ssd_chunk"] == expected, run["launches"]
+        assert run["launches"]["ssd_chunk_instances"] == {"mma": expected, "simt": 0}, run["launches"]
         assert run["launches"]["flash_attention"] == len(prompts), run["launches"]
     phase_jamba_routes(dev, jamba, run["model"], prompts[0], max_len=size["max_len"])
     ssd_launches = run["launches"]["ssd_chunk"]
+    ssd_instances = run["launches"]["ssd_chunk_instances"]
     del run
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
-    return {"flash_attention": flash_launches, "ssd_chunk": ssd_launches}
+    return {"flash_attention": flash_launches, "ssd_chunk": ssd_launches,
+            "ssd_chunk_instances": ssd_instances}
 
 
 def main() -> int:
@@ -1615,6 +1706,26 @@ def main() -> int:
     log(f"flash_attention bf16 kernel: {flash['registers']} registers, spills "
         f"{flash['spill_store_bytes']} / {flash['spill_load_bytes']} bytes, "
         f"{flash['dynamic_smem_bytes']} bytes of dynamic shared memory")
+    # B6: the mma instance on the card alone, beside the simt instance (the
+    # kernel it replaced) and the split route's bound; launches, registers,
+    # spills and dynamic shared memory per instance
+    ssd = next(k for k in kernels if k["name"] == "ssd_chunk")
+    ssd.update({key: lm_timing["ssd_chunk"][key] for key in (
+        "alone_ms", "simt", "split_bound_ms", "split_bound_by", "sm_clock_mhz", "max_sm_clock_mhz")})
+    ssd["simt"]["max_abs_err"] = lm_err["ssd_chunk_simt"]
+    ssd["instances"] = {
+        "mma": {"launches": serving["ssd_chunk_instances"]["mma"],
+                "ptxas": ptxas_stats(report, "ssd_chunk_mma_kernel"),
+                "dynamic_smem_bytes": _build.function("ssd_chunk_mma_smem_bytes", [])()},
+        "simt": {"launches": serving["ssd_chunk_instances"]["simt"],
+                 "ptxas": ptxas_stats(report, "16ssd_chunk_kernel"),
+                 "dynamic_smem_bytes": _build.function("ssd_chunk_simt_smem_bytes",
+                                                       [ctypes.c_int])(256)}}
+    for name, inst in ssd["instances"].items():
+        log(f"ssd_chunk {name}: {inst['ptxas']}, dynamic shared memory {inst['dynamic_smem_bytes']} "
+            f"bytes at L 256, {inst['launches']} launches in phase 13")
+    mma_ptxas = ssd["instances"]["mma"]["ptxas"]
+    assert mma_ptxas["spill_store_bytes"] == mma_ptxas["spill_load_bytes"] == 0, mma_ptxas
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(dev_info["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -10,9 +10,10 @@ drift of the card over the call shows in both).  Each checkout builds its own
 kernels into its own ``build/``.  Each run's whole output goes to
 ``OUT/<i>_<P|C>.log``; this script prints, per run, the lines that compare
 two builds of the port: the gram-free gains kernel's times, the phase 5 and
-7 stage times, launches, accuracy and peak memory, and the SHA-256 of the
-importance and bank of every ``MiloMetadata`` artifact the run saves
-(phases 5 and 7).  The digests come from a hook on ``MiloMetadata.save`` set
+7 stage times, launches, accuracy and peak memory, the SSD chunk kernel's
+phase 10-11 lines, phases 12-13's prefill per request and decode steps, and
+the SHA-256 of the importance and bank of every ``MiloMetadata`` artifact
+the run saves (phases 5 and 7).  The digests come from a hook on ``MiloMetadata.save`` set
 before the checkout's own smoke starts, so a checkout whose smoke prints no
 digest is compared the same way.  Exits non-zero if a run fails or if the
 runs' artifacts differ.
@@ -32,7 +33,15 @@ KEYS = ("fl_gains_gram_free (8192, 8192, 768), ", "  on the card alone", "  boun
         "  SM clock", "similarity (2048, 5000, 768) float32 normalized=True: kernel", "== phase",
         "preprocess ", "train ", "launches", "similarity launches", "full recomputes",
         "max_memory_allocated", "sha256 of", "[ab] artifact", "similarity: {",
-        "fl_gains_gram_free ring: {", "total ")
+        "fl_gains_gram_free ring: {", "total ",
+        # the SSD chunk (B6): phase 10's instances and errors, the tensor
+        # cores' sum against its model, phase 11's times, bounds and clock,
+        # the build's per-instance report; phases 12-13's serving: prefill
+        # per request, decode steps, launches, Jamba's per-layer route error
+        "ssd_chunk: ", "ssd_chunk simt instance: ", "mma.sync TF32 sums", "ssd_chunk jamba",
+        "  ssd_chunk", "ssd_chunk mma: {", "ssd_chunk simt: {",
+        "yi-6b: served", "jamba-1.5-large-398b: served", "  prefill per request", "  decode steps",
+        "  launches: flash_attention", "  ssd_chunk launches expected", "jamba request 0")
 
 
 def run_smoke(tree: Path) -> None:

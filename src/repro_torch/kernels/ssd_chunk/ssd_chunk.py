@@ -1,16 +1,24 @@
 """Wrapper of the hand-written CUDA SSD chunk kernel (``csrc/ssd_chunk.cu``).
 
 Replaces the TPU kernel ``ssd_chunk_pallas`` (``repro/kernels/ssd_chunk/
-ssd_chunk.py``, body ``_ssd_kernel``): one Mamba-2 SSD chunk, f32
-throughout — ``y = ((C·Bᵀ)∘exp(cum_t − cum_s)∘tril)·X + (C·h_in)∘exp(cum)``
+ssd_chunk.py``, body ``_ssd_kernel``): one Mamba-2 SSD chunk at f32
+accuracy — ``y = ((C·Bᵀ)∘exp(cum_t − cum_s)∘tril)·X + (C·h_in)∘exp(cum)``
 and ``h_out = exp(cum_L)·h_in + Bᵀ(X∘exp(cum_L − cum))``, with
 ``cum = cumsum(log max(a, 1e-20))`` and B, C shared across heads.  The
-kernel takes strides (unit stride on the last dim) and any chunk length, so
-chunk slices of a sequence go in, and y can be written into the sequence's
-output, without copies; a short last chunk needs no padding.
+kernel takes strides (unit stride on the last dim) and any chunk length its
+shared memory holds (a longer one is refused at launch), so chunk slices of
+a sequence go in, and y can be written into the sequence's output, without
+copies; a short last chunk needs no padding.
 
-``launches`` counts the kernel launches this wrapper made; set it to 0
-before a run to read how many that run made.
+The kernel has two instances, chosen inside its C entry point alone: ``mma``
+(the four products on the tensor cores in a three-part TF32 split) for every
+call whose loads ``cp.async`` can address and whose sizes its tiles hold,
+``simt`` (fp32 on the CUDA cores) for every other call.  The entry point
+reports the instance it launched.
+
+``launches`` counts the kernel launches this wrapper made, and
+``instance_launches`` the same launches per instance, as the kernel reported
+them; set them to 0 before a run to read what that run made.
 """
 from __future__ import annotations
 
@@ -21,18 +29,13 @@ import torch
 from repro_torch.kernels import _build
 
 launches = 0
+instance_launches = {"mma": 0, "simt": 0}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# x, a, b, c, h_in, y, h_out, strides[19], B, L, H, P, N, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-P_MAX, N_MAX = 64, 128        # csrc/ssd_chunk.cu P_MAX, N_MAX
-_HB, _TILE = 4, 64            # heads per y block, rows per tile
-_SMEM_MAX = 232448            # bytes of shared memory a Hopper block may use
-_GRID_X = 2**31 - 1
-
-
-def _smem_bytes(L: int) -> int:
-    return 4 * (2 * _TILE * (N_MAX + 1) + _TILE * (_TILE + 1) + _TILE * P_MAX + _HB * L)
+# x, a, b, c, h_in, y, h_out, strides[19], B, L, H, P, N, mma_out, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.POINTER(_I), _P]
+_PROBE_ARGTYPES = [_P, _P, _P, _P, _I, _P]   # a, b, c, d, tiles, stream
+P_MAX, N_MAX = 64, 128        # the head and state dims both instances' tiles hold
 
 
 def ssd_chunk_cuda(x, a, b, c, h_in, *, y=None, h_out=None):
@@ -58,8 +61,6 @@ def ssd_chunk_cuda(x, a, b, c, h_in, *, y=None, h_out=None):
         raise ValueError(f"shapes disagree: {[tuple(t.shape) for t in ins]}")
     if P > P_MAX or N > N_MAX:
         raise ValueError(f"head dim {P} > {P_MAX} or state dim {N} > {N_MAX}: beyond the kernel's tiles")
-    if _smem_bytes(L) > _SMEM_MAX:
-        raise ValueError(f"chunk length {L} needs more shared memory than a block has")
     y = torch.empty((B, L, H, P), dtype=torch.float32, device=dev) if y is None else y
     h_out = torch.empty((B, H, N, P), dtype=torch.float32, device=dev) if h_out is None else h_out
     for name, t, shape in (("y", y, (B, L, H, P)), ("h_out", h_out, (B, H, N, P))):
@@ -74,17 +75,38 @@ def ssd_chunk_cuda(x, a, b, c, h_in, *, y=None, h_out=None):
         if L == 0:
             h_out.copy_(h_in)
         return y, h_out
-    n_blocks = B * (-(-H // _HB)) * (-(-L // _TILE)) + B * H
-    if n_blocks > _GRID_X:
-        raise ValueError(f"{n_blocks} blocks exceed the kernel's grid")
     strides = (ctypes.c_longlong * 19)(
         *x.stride()[:3], *a.stride()[:3], *b.stride()[:2], *c.stride()[:2],
         *h_in.stride()[:3], *y.stride()[:3], *h_out.stride()[:3])
     fn = _build.function("ssd_chunk_f32", _ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    mma = _I()
     with torch.cuda.device(dev):
         code = fn(x.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(), h_in.data_ptr(),
-                  y.data_ptr(), h_out.data_ptr(), strides, B, L, H, P, N, stream)
+                  y.data_ptr(), h_out.data_ptr(), strides, B, L, H, P, N, ctypes.byref(mma),
+                  stream)
     _build.check(code, "ssd chunk kernel launch")
     launches += 1
+    instance_launches["mma" if mma.value else "simt"] += 1
     return y, h_out
+
+
+def mma_probe_cuda(a, b, c):
+    """d = a·b + c through one ``mma.sync.m16n8k8`` TF32 (the mma instance's
+    product instruction) per tile: a (T, 16, 8) and b (T, 8, 8) holding TF32
+    values, c (T, 16, 8), f32 on one card.  For holding the tensor cores'
+    sum against its model, ``tf32.mma_sum``; not a launch of the kernel."""
+    if a.device.type != "cuda" or b.device != a.device or c.device != a.device:
+        raise ValueError("mma_probe_cuda needs a, b and c on one CUDA device")
+    T = a.shape[0]
+    if tuple(a.shape) != (T, 16, 8) or tuple(b.shape) != (T, 8, 8) or tuple(c.shape) != (T, 16, 8):
+        raise ValueError(f"shapes are not (T, 16, 8), (T, 8, 8), (T, 16, 8): "
+                         f"{[tuple(t.shape) for t in (a, b, c)]}")
+    a, b, c = (t.float().contiguous() for t in (a, b, c))
+    d = torch.empty_like(c)
+    fn = _build.function("ssd_mma_probe", _PROBE_ARGTYPES)
+    with torch.cuda.device(a.device):
+        code = fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(), T,
+                  torch.cuda.current_stream(a.device).cuda_stream)
+    _build.check(code, "mma probe launch")
+    return d

@@ -561,3 +561,106 @@ def test_ssd_scan_kernel_matches_plain(cuda_device, S, chunk):
     y_r, h_r = ssd_scan_ref(x, a, b, c, chunk=chunk)
     np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(h.cpu().numpy(), h_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+# the SSD chunk's instances: mma (3xTF32 on the tensor cores) for every call
+# whose loads cp.async can address, simt (today's CUDA-core kernel) else.
+# Edges of the mma instance: L on either side of its 64-row tiles and at its
+# 256-row cap, a ragged 245, head counts that are not a multiple of its
+# 8-head groups, P 16 and 64, N 64 and 128, B 2
+SSD_MMA_CASES = [(1, 1, 8, 64, 128), (1, 63, 10, 64, 128), (1, 64, 8, 16, 64),
+                 (1, 65, 12, 64, 128), (1, 245, 16, 64, 128), (1, 256, 8, 64, 128),
+                 (2, 256, 10, 16, 128), (2, 65, 3, 64, 64), (2, 200, 17, 16, 64)]
+
+
+def _ssd_run(args, instance):
+    """One launch on ``args``: the instance it reported must be ``instance``;
+    the outputs match the plain version at the reference's 1e-4 and a second
+    launch gives the same bits."""
+    before = dict(ssd_kernel.instance_launches)
+    y, h_out = ssd_kernel.ssd_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    ran = {k: v - before[k] for k, v in ssd_kernel.instance_launches.items()}
+    assert ran == {k: int(k == instance) for k in ran}, ran
+    y_r, h_r = ssd_chunk_ref(*args)
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h_out.cpu().numpy(), h_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    y2, h2 = ssd_kernel.ssd_chunk_cuda(*args)
+    assert torch.equal(y, y2) and torch.equal(h_out, h2), "repeat bit-equal"
+    return y, h_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,H,P,N", SSD_MMA_CASES)
+def test_ssd_chunk_mma_instance_matches_plain(cuda_device, B, L, H, P, N):
+    rng = np.random.default_rng(3 * L + H + P + N + B)
+    _ssd_run(_ssd_inputs(rng, B, L, H, P, N, cuda_device), "mma")
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_mma_instance_on_the_models_views(cuda_device):
+    """b and c as the two halves of one (B, S, 2N) projection, chunk slices
+    of a longer sequence (the last one ragged), y written into the whole
+    sequence's output: every launch on the mma instance."""
+    rng = np.random.default_rng(5)
+    B, S, H, P, N = 2, 600, 10, 64, 128
+    x, a, _, _, _ = _ssd_inputs(rng, B, S, H, P, N, cuda_device)
+    bc = torch.from_numpy(rng.normal(size=(B, S, 2 * N)).astype(np.float32)).to(cuda_device)
+    b, c = bc.chunk(2, dim=-1)
+    h = torch.from_numpy(0.1 * rng.normal(size=(B, H, N, P)).astype(np.float32)).to(cuda_device)
+    for t0 in (0, 256, 512):
+        sl = slice(t0, t0 + 256)
+        _ssd_run((x[:, sl], a[:, sl], b[:, sl], c[:, sl], h), "mma")
+    before = dict(ssd_kernel.instance_launches)
+    y, h_fin = ssd_ops.ssd_scan(x, a, b, c, chunk=256)
+    torch.cuda.synchronize()
+    assert ssd_kernel.instance_launches["mma"] - before["mma"] == 3
+    assert ssd_kernel.instance_launches["simt"] == before["simt"]
+    y_r, h_r = ssd_scan_ref(x, a, b, c, chunk=256)
+    np.testing.assert_allclose(y.cpu().numpy(), y_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(h_fin.cpu().numpy(), h_r.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_views_cp_async_cannot_address_run_the_simt_instance(cuda_device):
+    """A base 4 bytes off 16-byte alignment, or a row stride that is not a
+    multiple of 4 floats, reaches the simt instance, which the report says;
+    the two instances agree at the tolerance."""
+    rng = np.random.default_rng(6)
+    x, a, b, c, h = _ssd_inputs(rng, 1, 100, 8, 64, 128, cuda_device)
+    y, h_out = _ssd_run((x, a, b, c, h), "mma")
+    for args in ((_misaligned(x), a, b, c, h), (x, a, b, c, _misaligned(h))):
+        y_s, h_s = _ssd_run(args, "simt")
+        np.testing.assert_allclose(y_s.cpu().numpy(), y.cpu().numpy(), rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(h_s.cpu().numpy(), h_out.cpu().numpy(), rtol=1e-4, atol=1e-4)
+    wide = torch.zeros((1, 100, 130), device=cuda_device)
+    wide[..., :128] = b
+    _ssd_run((x, a, wide[..., :128], c, h), "simt")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["normal", "large_c", "small_products", "spread_exponents",
+                                    "zero_c"])
+def test_tensor_core_sum_equals_its_model(cuda_device, regime):
+    """One ``mma.sync.m16n8k8`` TF32 per tile on the card equals
+    ``tf32.mma_sum`` bit for bit: the terms cut toward zero to 2^(E − 25),
+    the sum rounded toward zero (not to nearest)."""
+    from repro_torch.kernels.ssd_chunk import tf32
+
+    rng = np.random.default_rng(["normal", "large_c", "small_products", "spread_exponents",
+                                 "zero_c"].index(regime))
+    T = 512
+    a, b, c = rng.normal(size=(T, 16, 8)), rng.normal(size=(T, 8, 8)), rng.normal(size=(T, 16, 8))
+    if regime == "large_c":
+        c = 100 * c
+    elif regime == "small_products":
+        a = 1e-3 * a
+    elif regime == "spread_exponents":
+        a, b, c = (u * 2.0 ** rng.integers(-12, 12, size=u.shape) for u in (a, b, c))
+    elif regime == "zero_c":
+        c = 0 * c
+    a, b = tf32.tf32(a.astype(np.float32)), tf32.tf32(b.astype(np.float32))
+    c = c.astype(np.float32)
+    d = ssd_kernel.mma_probe_cuda(*(torch.from_numpy(u).to(cuda_device) for u in (a, b, c)))
+    np.testing.assert_array_equal(d.cpu().numpy().view(np.uint32),
+                                  tf32.mma_sum(a, b, c).view(np.uint32))
