@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-13 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-15 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -66,6 +66,25 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (``ssm_impl="pallas"`` too), every SSD chunk launch on the mma
     instance; then the kernel route against the plain route on request 0,
     with the tokens whose experts changed counted.
+14. fused training against the step loop at phase 5's geometry, on its
+    artifact (``adopt_metadata``): the ``milo`` selector, 12 epochs,
+    ``batch_size=32`` (``benchmarks/bench_training.py``'s), so 156 steps an
+    epoch; ``MiloSession(fused_training=True, superstep=32)`` runs them as
+    replays of one CUDA graph per segment shape (32 and 28).  Parameters,
+    momenta and per-step losses bit-equal to the loop's; both train times,
+    steps/s, captures, replays and peak memory.
+15. tuning: ``examples/tune_hparams.py``'s flow at phase 5's width (50,000
+    training and 10,000 validation rows), a fresh session adopting phase
+    5's artifact, ``tune`` with TPE over lr (log 3e-3–0.3) and hidden (32,
+    64, 128), Hyperband ``max_budget=9, eta=3``, fused training, for the
+    ``full``, ``milo`` and ``milo_fixed`` selectors (``milo_fixed`` rebuilds
+    its subset every trial: one build is timed first and its sweep cut to
+    ``max_budget=3`` if 22 builds would overrun the phase); wall time,
+    trials, total epochs, best score and config, failed trials, graph
+    captures and replays, and the full / milo wall-time ratio (reported,
+    not asserted); then a sweep ended by ``should_stop`` after its first
+    bracket and resumed from its checkpoint gives the uninterrupted run's
+    trial stream and best config.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
@@ -1554,10 +1573,169 @@ def phase_lm_serving(dev, *, rehearsal: bool) -> dict:
             "ssd_chunk_instances": ssd_instances}
 
 
+def _fits():
+    """Wrap ``Trainer.fit`` so each fitted state is kept (``train`` reports
+    no parameters); returns (states, restore)."""
+    from repro_torch.train import trainer as trainer_mod
+
+    states, orig = [], trainer_mod.Trainer.fit
+
+    def fit(self, state):
+        out = orig(self, state)
+        states.append(out)
+        return out
+
+    trainer_mod.Trainer.fit = fit
+    return states, lambda: setattr(trainer_mod.Trainer, "fit", orig)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().contiguous().view(torch.int32)
+
+
+def phase_fused_training(dev, x, y, tx, ty, md, *, epochs: int, batch_size: int = 32,
+                         superstep: int = 32) -> dict:
+    """Phase 14: ``MiloSession(fused_training=True)`` (one CUDA graph per
+    segment shape) against the step loop, on phase 5's artifact, adopted:
+    parameters and per-step losses bit-equal."""
+    from repro_torch.selection import MiloSession
+    from repro_torch.train import engine as engine_mod
+
+    log(f"== phase 14: fused training (CUDA graphs, superstep {superstep}) against the step loop")
+    states, restore = _fits()
+    runs = {}
+    try:
+        for fused in (False, True):
+            session = MiloSession(use_pallas=True, total_epochs=epochs, lr=0.01,
+                                  batch_size=batch_size, superstep=superstep,
+                                  fused_training=fused, device=dev)
+            session.adopt_metadata(md)
+            engine_mod.captures = engine_mod.replays = 0
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            report = session.train(x, y, test_x=tx, test_y=ty)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+            runs[fused] = dict(report=report, wall=wall, state=states[-1], peak=peak,
+                               captures=engine_mod.captures, replays=engine_mod.replays)
+            name = "fused" if fused else "loop"
+            log(f"{name}: train {wall:.3f} s ({report.train_time:.3f} s timed, {report.steps} steps, "
+                f"{report.steps / report.train_time:.1f} steps/s), accuracy {report.final_acc:.4f}, "
+                f"graph captures {engine_mod.captures} (warm-up included), replays "
+                f"{engine_mod.replays}, max_memory_allocated "
+                f"{peak if peak is None else f'{peak / 2**20:.1f} MiB'}")
+    finally:
+        restore()
+    loop, fused = runs[False], runs[True]
+    k, steps_per_epoch = md.k, md.k // batch_size
+    assert loop["report"].steps == fused["report"].steps == steps_per_epoch * epochs
+    for key in loop["state"].params:
+        assert torch.equal(_bits(loop["state"].params[key]), _bits(fused["state"].params[key])), key
+        assert torch.equal(_bits(loop["state"].mom[key]), _bits(fused["state"].mom[key])), key
+        assert torch.isfinite(fused["state"].params[key]).all(), key
+    strip = [{k_: v for k_, v in h.items() if k_ != "wall"} for h in loop["report"].history]
+    assert strip == [{k_: v for k_, v in h.items() if k_ != "wall"}
+                     for h in fused["report"].history]
+    assert loop["report"].final_acc == fused["report"].final_acc
+    segments = -(-steps_per_epoch // superstep)
+    shapes = {min(superstep, steps_per_epoch - i) for i in range(0, steps_per_epoch, superstep)}
+    log(f"{k} rows in batches of {batch_size}: {steps_per_epoch} steps an epoch, segment shapes "
+        f"{sorted(shapes, reverse=True)}; parameters, momenta and {len(strip)} history records "
+        "bit-equal to the loop's")
+    if dev.type == "cuda":
+        assert fused["captures"] == len(shapes), fused["captures"]
+        # warm_fused replays epoch 0's walk once before the timed run
+        assert fused["replays"] == segments * (epochs + 1), fused["replays"]
+        assert loop["captures"] == loop["replays"] == 0
+    return {"loop_s": loop["report"].train_time, "fused_s": fused["report"].train_time,
+            "steps": fused["report"].steps, "captures": fused["captures"],
+            "replays": fused["replays"]}
+
+
+TUNE_SPACE = {"lr": ("log", 3e-3, 0.3), "hidden": ("choice", [32, 64, 128])}
+
+
+def phase_tuning(dev, x, y, vx, vy, md, *, mf_limit_s: float = 40.0) -> dict:
+    """Phase 15: ``examples/tune_hparams.py``'s flow (TPE over lr and hidden,
+    Hyperband max_budget 9, eta 3) on phase 5's artifact, adopted, for the
+    full, milo and milo_fixed selectors; then a sweep ended by
+    ``should_stop`` after its first bracket and resumed from its checkpoint."""
+    from repro_torch.selection import MiloSession, build_selector
+    from repro_torch.train import engine as engine_mod
+
+    log("== phase 15: tuning (MiloSession.tune: TPE x Hyperband, fused training)")
+    session = MiloSession(use_pallas=True, eval_every_epochs=10, fused_training=True,
+                          device=dev)
+    session.adopt_metadata(md)
+    log(f"train {x.shape}, validation {vx.shape}; space {TUNE_SPACE}; artifact k = {md.k}")
+    # milo_fixed rebuilds its subset in every trial (a Gram and k greedy steps
+    # over every row): time one build, and cut its sweep to max_budget 3 (6
+    # trials) if the example's 22 would overrun its share (40 s) of the ~60 s
+    # phases 14-15 may take together
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    sel = build_selector("milo_fixed", features=x, k=md.k, device=dev)
+    t_build = time.perf_counter() - t0
+    idx = sel.plan(0).indices
+    assert len(np.unique(idx)) == md.k and idx.min() >= 0 and idx.max() < len(x)
+    del sel
+    mf_budget = 9 if 22 * t_build <= mf_limit_s else 3
+    log(f"one milo_fixed build ({len(x)} rows, k {md.k}): {t_build:.3f} s; 22 builds would take "
+        f"~{22 * t_build:.1f} s against a {mf_limit_s:.0f} s limit: milo_fixed sweeps at "
+        f"max_budget {mf_budget}")
+    out = {"milo_fixed_build_s": t_build, "milo_fixed_max_budget": mf_budget}
+    results = {}
+    for name in ("full", "milo", "milo_fixed"):
+        budget = mf_budget if name == "milo_fixed" else 9
+        engine_mod.captures = engine_mod.replays = 0
+        t0 = time.perf_counter()
+        res = session.tune(x, y, vx, vy, TUNE_SPACE, selector=name, search="tpe",
+                           max_budget=budget, eta=3, seed=0)
+        wall = time.perf_counter() - t0
+        results[name] = res
+        log(f"{name}: wall {wall:.3f} s, max_budget {budget}, {len(res.trials)} trials, "
+            f"total_epochs {res.total_epochs}, best_score {res.best_score:.4f}, best_config "
+            f"{res.best_config}, failed_trials {res.failed_trials}; graph captures "
+            f"{engine_mod.captures}, replays {engine_mod.replays}")
+        assert res.failed_trials == 0 and not res.stopped
+        assert all(math.isfinite(t["score"]) and 0.0 <= t["score"] <= 1.0 for t in res.trials)
+        if dev.type == "cuda":
+            widths = {t["config"]["hidden"] for t in res.trials}
+            # one segment shape per width (one full-subset batch an epoch)
+            assert engine_mod.captures == len(widths), (engine_mod.captures, widths)
+        out[name] = {"wall_s": wall, "trials": len(res.trials), "total_epochs": res.total_epochs,
+                     "best_score": res.best_score, "best_config": res.best_config,
+                     "failed_trials": res.failed_trials}
+    ratio = out["full"]["wall_s"] / out["milo"]["wall_s"]
+    log(f"full / milo tuning wall time: {ratio:.2f}x (reported, not asserted)")
+    out["full_over_milo"] = ratio
+
+    polls = {"n": 0}
+
+    def stop_after_first_bracket() -> bool:
+        polls["n"] += 1
+        return polls["n"] > 3   # bracket 2 of max_budget 9, eta 3 has three rungs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "hyperband.json")
+        kw = dict(selector="milo", search="tpe", max_budget=9, eta=3, seed=0, checkpoint=ckpt)
+        first = session.tune(x, y, vx, vy, TUNE_SPACE, should_stop=stop_after_first_bracket, **kw)
+        resumed = session.tune(x, y, vx, vy, TUNE_SPACE, **kw)
+    full_run = results["milo"]
+    assert first.stopped and len(first.trials) == 13, (first.stopped, len(first.trials))
+    assert resumed.trials == full_run.trials, "resumed trial stream differs"
+    assert resumed.best_config == full_run.best_config
+    log(f"checkpoint resume: stopped after bracket 2 with {len(first.trials)} trials, resumed to "
+        f"{len(resumed.trials)}: trial stream and best_config identical to the uninterrupted run")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-13 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-15 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -1577,6 +1755,10 @@ def main() -> int:
         phase_gram_free_routes(dev, main_run["x"], main_run["y"], gf["session"])
         phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
         phase_lm_serving(dev, rehearsal=True)
+        md = main_run["session"].metadata
+        phase_fused_training(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
+                             md, epochs=4, superstep=2)
+        phase_tuning(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"], md)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -1595,10 +1777,15 @@ def main() -> int:
     dense_launches = phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
     sim_launches, gf_launches = main_run["launches"], gf["launches"]
     delta_instances, gathers, b2_instances = gf["instances"], gf["gathers"], gf["b2_instances"]
+    # phases 14-15 train and tune on phase 5's data and artifact
+    train_data = {k: main_run[k] for k in ("x", "y", "tx", "ty")}
+    md = main_run["session"].metadata
     del main_run, gf
     lm_err = phase_lm_kernel_checks(dev)
     lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
     serving = phase_lm_serving(dev, rehearsal=False)
+    phase_fused_training(dev, *train_data.values(), md, epochs=12)
+    phase_tuning(dev, *train_data.values(), md)
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
         ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",

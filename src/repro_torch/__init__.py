@@ -7,7 +7,10 @@ imports ``torch`` and numpy only: nothing of JAX and nothing of ``repro``
 Covered so far: the paper's Algorithm 1 on the flat, dense, by-class path —
 ``MiloSession.preprocess`` (rescaled-cosine Gram → stochastic-greedy graph-cut
 SGE bank → full-greedy disparity-min WRE importance → ``MiloMetadata``) and
-``MiloSession.train`` (curriculum plans → plain-loop MLP training).  The Gram
+``MiloSession.train`` (curriculum plans → MLP training on the step loop or,
+with ``fused_training=True``, on the fused engine as CUDA graphs), and
+``MiloSession.tune`` (TPE / random search × Hyperband, ``milo_fixed``,
+``adopt_metadata``).  The Gram
 tiles go through a hand-written CUDA kernel (``kernels/similarity``) when
 ``use_pallas=True``.  Also the gram-free route (``gram_free=True``: the set
 functions contract features, no Gram) with facility-location importance

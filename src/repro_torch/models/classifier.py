@@ -67,9 +67,12 @@ def accuracy(p: dict[str, torch.Tensor], x: torch.Tensor, y: torch.Tensor) -> to
 
 @torch.no_grad()
 def nesterov_update(params: dict[str, torch.Tensor], mom: dict[str, torch.Tensor],
-                    grads: dict[str, torch.Tensor], lr: float, beta: float = 0.9):
+                    grads: dict[str, torch.Tensor], lr: float | torch.Tensor,
+                    beta: float = 0.9):
     """One Nesterov-momentum SGD step, in place (the reference returns new
-    pytrees; updating the buffers saves a copy of every parameter)."""
+    pytrees; updating the buffers saves a copy of every parameter).  ``lr``
+    is a float or a 0-d tensor on the parameters' device (the session's
+    schedule, computed on the device so a captured graph reads it there)."""
     for k, g in grads.items():
         m = mom[k].mul_(beta).add_(g)
         params[k].sub_(lr * (g + beta * m))

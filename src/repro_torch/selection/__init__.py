@@ -1,9 +1,10 @@
 """repro_torch.selection — the front door for subset selection on PyTorch.
 
 * ``SelectionPlan`` / ``Selector`` — the weighted per-epoch protocol.
-* ``build_selector(name, **cfg)`` — registry factory (milo, full, random,
-  adaptive_random so far).
-* ``MiloSession`` — one-call facade: ``preprocess()`` / ``train()``.
+* ``build_selector(name, **cfg)`` — registry factory (milo, milo_fixed,
+  full, random, adaptive_random so far).
+* ``MiloSession`` — one-call facade: ``preprocess()`` / ``train()`` /
+  ``tune()``.
 """
 from repro_torch.selection.plan import PHASES, SelectionPlan, uniform_plan
 from repro_torch.selection.base import Selector
@@ -17,6 +18,7 @@ from repro_torch.selection.selectors import (
     AdaptiveRandomConfig,
     FullConfig,
     MiloConfig,
+    MiloFixedConfig,
     RandomConfig,
 )
 from repro_torch.selection.session import MiloSession, MiloSessionConfig, TrainReport
@@ -24,6 +26,6 @@ from repro_torch.selection.session import MiloSession, MiloSessionConfig, TrainR
 __all__ = [
     "PHASES", "SelectionPlan", "Selector", "uniform_plan", "available_selectors",
     "build_selector", "register", "selector_entry", "AdaptiveRandomConfig",
-    "FullConfig", "MiloConfig", "RandomConfig", "MiloSession", "MiloSessionConfig",
+    "FullConfig", "MiloConfig", "MiloFixedConfig", "RandomConfig", "MiloSession", "MiloSessionConfig",
     "TrainReport",
 ]

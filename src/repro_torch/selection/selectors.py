@@ -1,5 +1,5 @@
-"""The ported selection strategies: ``milo``, ``full``, ``random`` and
-``adaptive_random`` (port of ``repro.selection.selectors``).
+"""The ported selection strategies: ``milo``, ``milo_fixed``, ``full``,
+``random`` and ``adaptive_random`` (port of ``repro.selection.selectors``).
 
 The other names of the reference's registry raise ``KeyError`` through
 ``registry.selector_entry`` until their slice lands (see ROADMAP).
@@ -12,6 +12,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.baselines import selectors as legacy
 from repro_torch.core.curriculum import CurriculumConfig
 from repro_torch.core.metadata import MiloMetadata
 from repro_torch.core.milo import MiloSelector
@@ -81,6 +82,36 @@ class MiloPlanSelector(Selector):
 
     def reset_cache(self) -> None:
         self._inner._cache_epoch = -1
+
+
+@dataclasses.dataclass
+class MiloFixedConfig:
+    features: np.ndarray
+    k: int
+    # select over features directly (O(n·d) memory) instead of the (n,n) Gram
+    gram_free: bool = False
+    # shard the feature rows over all local devices (not ported: ROADMAP A11)
+    shard_selection: bool = False
+    # where the greedy runs (see baselines.MiloFixedSelector)
+    device: str | torch.device = "cuda"
+
+
+@register("milo_fixed", MiloFixedConfig, paper="MILO (Fixed)",
+          doc="fixed disparity-min subset over frozen-encoder features")
+class MiloFixedPlanSelector(Selector):
+    """One fixed subset maximizing disparity-min (no curriculum)."""
+
+    def __init__(self, cfg: MiloFixedConfig):
+        self.cfg = cfg
+        self._inner = legacy.MiloFixedSelector(
+            cfg.features, cfg.k, gram_free=cfg.gram_free,
+            shard_selection=cfg.shard_selection, device=cfg.device,
+        )
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(
+            self._inner.indices_for_epoch(epoch), "fixed", epoch, selector="milo_fixed"
+        )
 
 
 @dataclasses.dataclass

@@ -6,18 +6,23 @@ Port of ``repro.selection.session``::
                                             use_pallas=True), device="cuda")
     session.preprocess(features, labels)        # once per (dataset, k)
     r1 = session.train(features, labels, test_x=tx, test_y=ty)
+    best = session.tune(features, labels, vx, vy, {"lr": ("log", 1e-3, 0.3)})
 
 ``preprocess`` runs the model-agnostic stage (or reloads a saved artifact
-whose config matches); ``train`` wires a registry-built selector into
-``Pipeline`` + ``Trainer`` with plan weights flowing into the loss.  The
-config is the reference's, field for field, so its keys and every
-artifact's ``config_hash`` are the same; ``device`` is a constructor keyword
-argument, not a field.  ``tune`` is not ported yet (ROADMAP A7).
+whose config matches; ``adopt_metadata`` installs one built elsewhere);
+``train`` wires a registry-built selector into ``Pipeline`` + ``Trainer``
+with plan weights flowing into the loss, on the step loop or, with
+``fused_training=True``, on the fused engine (CUDA graphs on the card);
+``tune`` runs Hyperband over ``lr``/``hidden`` with a fresh selector for
+every trial.  The config is the reference's, field for field, so its keys
+and every artifact's ``config_hash`` are the same; ``device`` is a
+constructor keyword argument, not a field.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import time
 from typing import Any, NamedTuple
 
@@ -32,6 +37,9 @@ from repro_torch.models.classifier import accuracy, init_mlp, nesterov_update, w
 from repro_torch.selection.base import Selector
 from repro_torch.selection.registry import build_selector, selector_entry
 from repro_torch.train.trainer import Trainer, TrainerConfig
+from repro_torch.tuning.tuner import (
+    HyperbandResult, RandomSearch, TPESearch, hyperband, subset_objective,
+)
 
 
 def _data_fingerprint(features: np.ndarray) -> str:
@@ -48,7 +56,6 @@ _PREPROCESS_KEYS = (
 
 #: session knobs whose machinery is not ported yet (see core.milo.refuse_unported)
 UNPORTED_SESSION = {
-    "fused_training": (False, "A6 (fused training engine)"),
     "multihost_init": (False, "A11 (multi-host execution)"),
     "heartbeat_dir": (None, "A11 (multi-host liveness)"),
     "selector_fallback": ((), "A9 (selector fallback chains)"),
@@ -151,25 +158,46 @@ class TrainReport:
 class _ClassifierState(NamedTuple):
     params: dict
     mom: dict
-    step: int
-    lr0: float
-    total_steps: int
+    step: torch.Tensor          # () int64, advanced in place by each step
+    lr0: torch.Tensor           # () f32 — device tensors, as the reference
+    total_steps: torch.Tensor   # () f32   keeps them traced
+
+
+def _init_classifier(seed: int, d_in: int, n_classes: int, hidden: int, lr0: float,
+                     total_steps: int, device: torch.device) -> _ClassifierState:
+    params = init_mlp(torch.Generator().manual_seed(seed), d_in, n_classes, hidden,
+                      device=device)
+    return _ClassifierState(
+        params, {k: torch.zeros_like(v) for k, v in params.items()},
+        torch.zeros((), dtype=torch.int64, device=device),
+        torch.tensor(lr0, dtype=torch.float32, device=device),
+        torch.tensor(total_steps, dtype=torch.float32, device=device))
+
+
+# One step function per sub_steps value, shared across every train()/tune()
+# call: lr and horizon live in the state's tensors, so the fused engine
+# (cached per step function) reuses its graphs across a Hyperband lr sweep.
+_STEP_CACHE: dict[int, Any] = {}
 
 
 def _classifier_step_fn(sub_steps: int):
     """Weighted-CE Nesterov-SGD step with cosine decay; consumes the plan
     weights the pipeline injects into ``batch["weights"]``.  The reference's
-    ``lax.scan`` over sub-steps is a loop here, with autograd per sub-step."""
+    ``lax.scan`` over sub-steps is a loop here, with autograd per sub-step.
+    Everything runs on the device — the cosine lr from the state's tensors,
+    ``step += 1`` in place — so the step loop and a graph replay run the same
+    ops and no host value is baked into a captured graph."""
+    fn = _STEP_CACHE.get(sub_steps)
+    if fn is not None:
+        return fn
 
     def train_step(state: _ClassifierState, batch: dict):
         x, y = batch["x"], batch["y"]
         w = batch.get("weights")
         if w is None:
             w = torch.ones(x.shape[:1], dtype=torch.float32, device=x.device)
-        # the schedule in float32 on the host, as the reference computes it
-        f32 = np.float32
-        frac = f32(state.step) / max(f32(state.total_steps) - f32(1.0), f32(1.0))
-        lr = float(f32(state.lr0) * f32(0.5) * (f32(1.0) + np.cos(f32(np.pi) * min(frac, f32(1.0)))))
+        frac = state.step.to(torch.float32) / torch.clamp(state.total_steps - 1.0, min=1.0)
+        lr = state.lr0 * 0.5 * (1.0 + torch.cos(math.pi * torch.clamp(frac, max=1.0)))
         params, mom = state.params, state.mom
         for p in params.values():
             p.requires_grad_(True)
@@ -177,10 +205,11 @@ def _classifier_step_fn(sub_steps: int):
             loss = weighted_nll(params, x, y, w)
             grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
             nesterov_update(params, mom, grads, lr)
-        new = _ClassifierState(params, mom, state.step + 1, state.lr0, state.total_steps)
-        return new, {"loss": loss.detach()}
+        state.step.add_(1)
+        return state, {"loss": loss.detach()}
 
-    return train_step
+    fn = _STEP_CACHE[sub_steps] = train_step
+    return fn
 
 
 class MiloSession:
@@ -203,6 +232,10 @@ class MiloSession:
         self.config = config
         self.metadata: MiloMetadata | None = None
         self.loaded_from_artifact = False
+        # (features, labels, device columns) a tune() sweep shares across its
+        # trials, so the fused engine's graphs (which read the columns in
+        # place) are captured once per shape, not once per trial
+        self._columns: tuple[Any, Any, dict] | None = None
 
     # -- stage 1: model-agnostic preprocessing ------------------------------
 
@@ -286,15 +319,53 @@ class MiloSession:
             mismatch["prep_seed"] = (stored_seed, cfg.resolved_prep_seed())
         if "firewall" in md.config and md.config["firewall"] != cfg.firewall:
             mismatch["firewall"] = (md.config["firewall"], cfg.firewall)
-        stored_part = md.config.get("partition", "by_class")
-        if stored_part != cfg.partition:
-            mismatch["partition"] = (stored_part, cfg.partition)
-        stored_rf = int(md.config.get("refine_factor", 1))
-        if stored_rf != max(1, int(cfg.refine_factor)):
-            mismatch["refine_factor"] = (stored_rf, cfg.refine_factor)
+        mismatch.update(self._partition_mismatch(md))
         if mismatch:
             raise MetadataMismatchError(
                 f"{path}: config mismatch on {mismatch} (stored, expected)")
+        return md
+
+    def _partition_mismatch(self, md: MiloMetadata) -> dict[str, tuple]:
+        """Partition provenance shared by artifact load and adopt.  Partition
+        keys are stamped only off the flat path, so their absence means the
+        flat by-class path; block and seed only by the strategies that use
+        them."""
+        cfg = self.config
+        bad: dict[str, tuple] = {}
+        stored_part = md.config.get("partition", "by_class")
+        if stored_part != cfg.partition:
+            bad["partition"] = (stored_part, cfg.partition)
+        stored_rf = int(md.config.get("refine_factor", 1))
+        if stored_rf != max(1, int(cfg.refine_factor)):
+            bad["refine_factor"] = (stored_rf, cfg.refine_factor)
+        for key, want in (("partition_block", cfg.partition_block),
+                          ("partition_seed", cfg.partition_seed)):
+            if key in md.config and int(md.config[key]) != int(want):
+                bad[key] = (md.config[key], want)
+        return bad
+
+    def adopt_metadata(self, md: MiloMetadata, *, loaded: bool = True) -> MiloMetadata:
+        """Install an externally owned artifact (one another session or
+        process built or reloaded) as this session's preprocessing result,
+        after the config checks a ``metadata_path`` load applies."""
+        expected = self.config.expected_artifact_config()
+        bad = {k: (md.config.get(k), v) for k, v in expected.items()
+               if k in md.config and md.config.get(k) != v}
+        if bad:
+            raise MetadataMismatchError(
+                f"adopted artifact: config mismatch on {bad} (stored, expected)")
+        stored_seed = md.config.get("prep_seed")
+        expected_seed = self.config.resolved_prep_seed()
+        if stored_seed is not None and stored_seed != expected_seed:
+            raise MetadataMismatchError(
+                "adopted artifact: config mismatch on "
+                f"{{'prep_seed': ({stored_seed}, {expected_seed})}} (stored, expected)")
+        bad = self._partition_mismatch(md)
+        if bad:
+            raise MetadataMismatchError(
+                f"adopted artifact: config mismatch on {bad} (stored, expected)")
+        self.metadata = md
+        self.loaded_from_artifact = loaded
         return md
 
     def _require_metadata(self, n: int | None = None,
@@ -327,8 +398,9 @@ class MiloSession:
         **extra: Any,
     ) -> Selector:
         """Build this session's selector from the registry (``milo``,
-        ``full``, ``random``, ``adaptive_random``); ``milo``'s WRE draws run
-        on the session's device and take ``wre_noise=`` through ``extra``."""
+        ``milo_fixed``, ``full``, ``random``, ``adaptive_random``); ``milo``'s
+        WRE draws and ``milo_fixed``'s greedy run on the session's device,
+        and ``milo`` takes ``wre_noise=`` through ``extra``."""
         cfg = self.config
         name = name or cfg.selector
         selector_entry(name)  # KeyError for names not ported yet
@@ -347,6 +419,11 @@ class MiloSession:
                     f"artifact (k={md.k}); rebuild the artifact to change it")
             return build_selector("milo", metadata=md, total_epochs=epochs,
                                   kappa=cfg.kappa, R=cfg.R, seed=seed,
+                                  device=self.device, **extra)
+        if name == "milo_fixed":
+            if features is None:
+                raise ValueError("milo_fixed needs `features`")
+            return build_selector("milo_fixed", features=features, k=k,
                                   device=self.device, **extra)
         if name == "full":
             if explicit_k:
@@ -408,24 +485,22 @@ class MiloSession:
         def make_batch(idx: np.ndarray) -> dict:
             return {"x": feats[idx], "y": labs[idx]}
 
-        def put_batch(b: dict) -> dict:
-            return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
-
         plan0 = sel.plan(0).validate(n)
         batch_size = cfg.batch_size or plan0.k
         if batch_size > plan0.k:
             raise ValueError(
                 f"batch_size={batch_size} exceeds the selected subset size "
                 f"k={plan0.k}; every epoch would yield zero batches")
-        pipe = Pipeline(make_batch, sel, batch_size, seed=seed)
+        # the column store mirrors make_batch exactly, enabling the fused
+        # device-resident path when cfg.fused_training asks for it
+        pipe = Pipeline(make_batch, sel, batch_size, seed=seed,
+                        arrays={"x": feats, "y": labs}, device=dev)
         steps = max(1, pipe.steps_per_epoch()) * epochs
         train_step = _classifier_step_fn(cfg.sub_steps)
 
         def init_state() -> _ClassifierState:
-            params = init_mlp(torch.Generator().manual_seed(seed), feats.shape[1],
-                              n_classes, hidden, device=dev)
-            mom = {k: torch.zeros_like(v) for k, v in params.items()}
-            return _ClassifierState(params, mom, 0, float(lr), steps)
+            return _init_classifier(seed, feats.shape[1], n_classes, hidden, float(lr),
+                                    steps, dev)
 
         tx = torch.as_tensor(np.asarray(test_x, np.float32), device=dev)
         ty = torch.as_tensor(np.asarray(test_y, np.int64), device=dev)
@@ -433,19 +508,25 @@ class MiloSession:
         def eval_fn(st: _ClassifierState) -> dict:
             return {"acc": accuracy(st.params, tx, ty)}
 
+        shared = self._columns
         trainer = Trainer(
             train_step, pipe,
             TrainerConfig(epochs=epochs, eval_every_epochs=cfg.eval_every_epochs,
                           log_every_steps=1),
-            eval_fn=eval_fn, put_batch=put_batch,
+            eval_fn=eval_fn, fused=cfg.fused_training, superstep=cfg.superstep,
+            resident_buffers=(shared[2] if shared is not None and shared[0] is features
+                              and shared[1] is labels else None),
         )
         # warm up outside the timed region (library handles, allocator, both
         # curriculum phases' draws) on a throwaway state, then drop the plan
         # caches so the timed run charges every epoch's selection
         if plan0.phase in ("sge", "wre"):
             sel.plan(max(epochs - 1, 0))
-        train_step(init_state(), put_batch(next(iter(pipe.epoch(0)))))
+        train_step(init_state(), trainer.put_batch(next(iter(pipe.epoch(0)))))
         float(accuracy(init_state().params, tx, ty))
+        # the fused path's segment graphs: captured (or found in the engine's
+        # cache) on a throwaway state
+        trainer.warm_fused(init_state())
         getattr(sel, "reset_cache", lambda: None)()
         pipe.invalidate_plan_cache()
 
@@ -460,5 +541,72 @@ class MiloSession:
         return TrainReport(final_acc=final, best_acc=max(accs), train_time=train_time,
                            steps=int(state.step), history=trainer.history)
 
-    def tune(self, *args: Any, **kwargs: Any):
-        raise NotImplementedError("MiloSession.tune is not ported yet (ROADMAP A7)")
+    # -- stage 3: hyper-parameter tuning ------------------------------------
+
+    def tune(
+        self,
+        features: np.ndarray,
+        labels: np.ndarray,
+        val_x: np.ndarray,
+        val_y: np.ndarray,
+        space: dict,
+        *,
+        selector: str | None = None,
+        search: str = "tpe",
+        max_budget: int = 9,
+        eta: int = 3,
+        seed: int | None = None,
+        batched_objective: Any | None = None,
+        should_stop: Any | None = None,
+        checkpoint: str | None = None,
+        **selector_kwargs: Any,
+    ) -> HyperbandResult:
+        """Hyperband over ``space`` with registry-selected subsets powering
+        every configuration evaluation (paper §4's 20-75x tuning speedups).
+
+        Each trial trains ``max(2, budget)`` epochs on a freshly built
+        selector and scores the validation accuracy.  ``batched_objective(
+        configs, budget) -> scores`` evaluates a rung in one call;
+        ``should_stop()`` is polled before every rung (an early stop returns
+        ``stopped=True``); ``checkpoint`` names the JSON rung-state file that
+        makes the sweep resumable with the identical trial stream and
+        ``best_config`` (see ``tuning.hyperband``; the file is the
+        reference's format, so either package resumes the other's)."""
+        cfg = self.config
+        seed = seed if seed is not None else cfg.seed
+        tunable = {"lr", "hidden"}
+        unknown = set(space) - tunable
+        if unknown:
+            raise ValueError(
+                f"tune() searches over {sorted(tunable)}; unsupported space "
+                f"keys {sorted(unknown)} would be sampled but never applied")
+        searches = {"tpe": TPESearch, "random": RandomSearch}
+        if search not in searches:
+            raise ValueError(f"unknown search {search!r}; available: {sorted(searches)}")
+        search_obj = searches[search](space, seed=seed)
+
+        def train_fn(trial_cfg: dict, budget: int, sel) -> float:
+            report = self.train(
+                features, labels, test_x=val_x, test_y=val_y,
+                selector=sel, epochs=max(2, budget), seed=seed,
+                lr=trial_cfg.get("lr"), hidden=trial_cfg.get("hidden"),
+            )
+            return report.final_acc
+
+        def selector_factory(budget: int):
+            return self.selector(
+                selector, n=len(features), epochs=max(2, budget), seed=seed,
+                features=features, **selector_kwargs,
+            )
+
+        objective = subset_objective(train_fn, selector_factory)
+        if cfg.fused_training:
+            self._columns = (features, labels, {
+                "x": torch.as_tensor(np.asarray(features, np.float32), device=self.device),
+                "y": torch.as_tensor(np.asarray(labels, np.int64), device=self.device)})
+        try:
+            return hyperband(objective, search_obj, max_budget=max_budget, eta=eta,
+                             batched_objective=batched_objective,
+                             should_stop=should_stop, checkpoint=checkpoint)
+        finally:
+            self._columns = None

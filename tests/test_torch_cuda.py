@@ -664,3 +664,114 @@ def test_tensor_core_sum_equals_its_model(cuda_device, regime):
     d = ssd_kernel.mma_probe_cuda(*(torch.from_numpy(u).to(cuda_device) for u in (a, b, c)))
     np.testing.assert_array_equal(d.cpu().numpy().view(np.uint32),
                                   tf32.mma_sum(a, b, c).view(np.uint32))
+
+
+# ---------------------------------------------------------------------------
+# the fused training engine: CUDA graphs against the eager step loop
+# ---------------------------------------------------------------------------
+
+def _fused_case(dev, *, n=512, d=24, classes=5, k=200, batch=16):
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.selection import build_selector
+
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(n, d)).astype(np.float32)
+    labs = rng.integers(0, classes, size=n).astype(np.int64)
+    sel = build_selector("adaptive_random", n=n, k=k, R=1, seed=3)
+    loop = Pipeline(lambda i: {"x": feats[i], "y": labs[i]}, sel, batch, seed=1, device=dev)
+    fused = Pipeline(None, sel, batch, seed=1, arrays={"x": feats, "y": labs}, device=dev)
+    return feats, labs, loop, fused
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("superstep", [1, 5, 32])
+def test_fused_graph_replay_matches_step_loop_bit_for_bit(cuda_device, superstep):
+    """Graph replays of the session's step (gather, weights, forward,
+    autograd, in-place Nesterov, ``step += 1``) give the eager loop's
+    parameters, momenta and per-step losses bit for bit; 12 steps an epoch,
+    so ``superstep=5`` cycles through segments of 5, 5 and 2."""
+    import importlib
+
+    from repro_torch.train import engine as engine_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    session = importlib.import_module("repro_torch.selection.session")
+    feats, _, loop_pipe, fused_pipe = _fused_case(cuda_device)
+    epochs = 3
+    total = loop_pipe.steps_per_epoch() * epochs
+    step = session._classifier_step_fn(4)
+    tcfg = TrainerConfig(epochs=epochs, log_every_steps=1)
+
+    def state():
+        return session._init_classifier(0, feats.shape[1], 5, 32, 0.05, total, cuda_device)
+
+    tr_loop = Trainer(step, loop_pipe, tcfg)
+    tr_fused = Trainer(step, fused_pipe, tcfg, fused=True, superstep=superstep)
+    assert tr_fused.fused_active()
+    s_loop = tr_loop.fit(state())
+    before = (engine_mod.captures, engine_mod.replays)
+    s_fused = tr_fused.fit(state())
+    torch.cuda.synchronize()
+    assert engine_mod.replays - before[1] == epochs * -(-12 // superstep)
+    assert int(s_loop.step) == int(s_fused.step) == total
+    for k in s_loop.params:
+        assert torch.equal(s_loop.params[k], s_fused.params[k]), k
+        assert torch.equal(s_loop.mom[k], s_fused.mom[k]), k
+    assert [(h["step"], h["loss"]) for h in tr_loop.history] == \
+           [(h["step"], h["loss"]) for h in tr_fused.history]
+    # make_superstep on the same batches: one graph, the eager steps' bits
+    idx, w = fused_pipe.device_epoch(0)
+    bufs = {k: torch.as_tensor(v, device=cuda_device) for k, v in fused_pipe.arrays.items()}
+    batches = {"x": bufs["x"][idx[:4]], "y": bufs["y"][idx[:4]], "weights": w[:4]}
+    a, ma = engine_mod.make_superstep(step)(state(), batches)
+    b, losses = state(), []
+    for t in range(4):
+        b, mb = step(b, {k: v[t] for k, v in batches.items()})
+        losses.append(mb["loss"])
+    assert torch.equal(ma["loss"], torch.stack(losses))
+    assert all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+
+
+@pytest.mark.cuda
+def test_fused_graphs_are_reused_across_trials_and_widths(cuda_device):
+    """A Hyperband sweep over ``hidden ∈ {32, 64, 128}`` captures one graph
+    per (width, segment shape) and replays it in every later trial."""
+    from repro_torch.selection import MiloSession
+    from repro_torch.train import engine as engine_mod
+
+    feats, labs, _, _ = _fused_case("cpu", n=600)
+    session = MiloSession(selector="random", subset_fraction=0.2, batch_size=16, superstep=4,
+                          fused_training=True, device=cuda_device)
+    space = {"lr": ("log", 3e-3, 0.3), "hidden": ("choice", [32, 64, 128])}
+    engine_mod.captures = engine_mod.replays = 0
+    res = session.tune(feats, labs, feats[:100], labs[:100], space, search="random",
+                       max_budget=9, eta=3)
+    widths = {t["config"]["hidden"] for t in res.trials}
+    assert len(res.trials) == 22 and len(widths) == 3
+    # 120 rows in batches of 16: 7 steps an epoch, segments of 4 and 3
+    assert engine_mod.captures == 2 * len(widths), engine_mod.captures
+    assert engine_mod.replays > 10 * engine_mod.captures
+
+
+@pytest.mark.cuda
+def test_fused_capture_failure_raises(cuda_device):
+    """A step that reads a device value on the host cannot be captured: the
+    engine raises instead of falling back to the eager loop."""
+    import importlib
+
+    from repro_torch.train.engine import epoch_engine
+
+    session = importlib.import_module("repro_torch.selection.session")
+    inner = session._classifier_step_fn(1)
+
+    def syncing_step(state, batch):
+        state, m = inner(state, batch)
+        return state, {"loss": torch.tensor(float(m["loss"]), device=cuda_device)}
+
+    feats, labs, _, fused_pipe = _fused_case(cuda_device)
+    idx, w = fused_pipe.device_epoch(0)
+    bufs = {"x": torch.as_tensor(feats, device=cuda_device),
+            "y": torch.as_tensor(labs, device=cuda_device)}
+    st = session._init_classifier(0, feats.shape[1], 5, 16, 0.05, 10, cuda_device)
+    with pytest.raises(RuntimeError):
+        epoch_engine(syncing_step)(st, bufs, idx[:2], w[:2])

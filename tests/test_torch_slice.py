@@ -165,7 +165,8 @@ def test_trainer_steps_match_reference(data):
         jnp.zeros((), jnp.int32), jnp.asarray(0.05, jnp.float32), jnp.asarray(steps, jnp.float32))
     params_t = params_from_jax(params_np, "cpu")
     state_t = tsession._ClassifierState(
-        params_t, {k: torch.zeros_like(v) for k, v in params_t.items()}, 0, 0.05, steps)
+        params_t, {k: torch.zeros_like(v) for k, v in params_t.items()},
+        torch.zeros((), dtype=torch.int64), torch.tensor(0.05), torch.tensor(float(steps)))
 
     tr_j = JTrainer(jsession._classifier_step_fn(sub_steps), pipe_j,
                     JTrainerConfig(epochs=epochs, log_every_steps=1))
