@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-15 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-16 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -85,17 +85,35 @@ Phases, in order; any failure ends the run with a non-zero exit:
     not asserted); then a sweep ended by ``should_stop`` after its first
     bracket and resumed from its checkpoint gives the uninterrupted run's
     trial stream and best config.
+16. the hierarchical path on phase 5's data (k = 5,000): (a) the dense route,
+    ``MiloSession(use_pallas=True, partition="balanced_blocks",
+    partition_block=2048, refine_factor=2)`` after ``warmup`` (30 blocks,
+    bank widths ~333 run at 512, each of the 8 slots' unions of 10,000 rows
+    refined to k: B1 for every block's and every union's Gram); (b) phase
+    7's gram-free lazy path over ``random_blocks`` of 4096 with rf 2 (13
+    blocks: B2 and B3 in every block's WRE pass); (c) ``hierarchical_select``
+    (facility location, gram-free, ``use_pallas=True``: B2 every level-0 step,
+    B3 in the lazy refine), block 0's level 0 and the refine on both routes
+    (index-exact up to a near-tie), and the registry's ``milo_hier`` (the
+    plain route); (d) ``milo_targeted`` with 64 queries from class 0, k 500.
+    Stage times (Gram, SGE, WRE, refine), time per lazy step, B1-B3
+    launches (per instance), peak memory, train time and accuracy; every
+    artifact checked, reloaded, and refused by a session with another
+    ``refine_factor``; B1 at the union's shape and B2, B3 at block 0's and
+    the union's against their plain versions.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
 phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
-dense ``fl_gains`` kernel, 12 for flash attention, 13 for the SSD chunk),
+dense ``fl_gains`` kernel, 12 for flash attention, 13 for the SSD chunk; B1-B3
+also carry their phase 16 launches and errors),
 the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -390,7 +408,8 @@ def phase_kernel_timing(dev, smi: str) -> dict:
 
 
 def _check(name: str, out: torch.Tensor, ref: torch.Tensor, tol: dict) -> float:
-    torch.cuda.synchronize()
+    if out.is_cuda:
+        torch.cuda.synchronize()
     err = float((out - ref).abs().max()) if out.numel() else 0.0
     ok = torch.allclose(out, ref, **tol) and not torch.isnan(out).any()
     log(f"{name}: max_abs_err={err:.3e} (rtol {tol['rtol']}, atol {tol['atol']:.2e}) "
@@ -1295,7 +1314,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
 
     sk.launches = fa.launches = sc.launches = 0
-    for counts in (fk.launches, sc.instance_launches):
+    for counts in (fk.launches, fk.gram_free_launches, fk.delta_launches, sc.instance_launches):
         for key in counts:
             counts[key] = 0
 
@@ -1732,10 +1751,508 @@ def phase_tuning(dev, x, y, vx, vy, md, *, mf_limit_s: float = 40.0) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the hierarchical path (block partitions, level-1 refine,
+# milo_hier, milo_targeted, warmup) on B1, B2 and B3
+# ---------------------------------------------------------------------------
+
+#: phase 16's widths at full size and in the CPU rehearsal
+HIER_SIZES = {"full": dict(dense_block=2048, gf_block=4096, k_targeted=500, n_queries=64),
+              "rehearsal": dict(dense_block=128, gf_block=256, k_targeted=20, n_queries=8)}
+
+
+@contextlib.contextmanager
+def _stage_times(owner, stages: dict[str, str], dev):
+    """Wrap ``owner``'s functions (a module's or a class's) so each stage's
+    synchronised wall time adds up in the yielded dict; restored after."""
+    times: dict[str, float] = {}
+    originals = {attr: getattr(owner, attr) for attr in stages.values()}
+    for key, attr in stages.items():
+        setattr(owner, attr, _timed(originals[attr], times, key, dev))
+    try:
+        yield times
+    finally:
+        for attr, fn in originals.items():
+            setattr(owner, attr, fn)
+
+
+@contextlib.contextmanager
+def _lazy_runs():
+    """Record every ``lazy_greedy`` result (rows_evaluated, ground rows)."""
+    from repro_torch.core import greedy as greedy_mod
+
+    runs: list = []
+    orig = greedy_mod.lazy_greedy
+
+    def recorded(*args, **kwargs):
+        res = orig(*args, **kwargs)
+        runs.append((res, args[1].shape[0]))
+        return res
+
+    greedy_mod.lazy_greedy = recorded
+    try:
+        yield runs
+    finally:
+        greedy_mod.lazy_greedy = orig
+
+
+def _reset_peak(dev) -> float | None:
+    """Reset the peak counter; returns the MiB earlier phases still hold."""
+    if dev.type != "cuda":
+        return None
+    torch.cuda.reset_peak_memory_stats(dev)
+    return torch.cuda.memory_allocated(dev) / 2**20
+
+
+def _peak_mib(dev, held: float | None) -> float | None:
+    """Peak allocated MiB since ``_reset_peak``, above what was held then."""
+    return None if held is None else torch.cuda.max_memory_allocated(dev) / 2**20 - held
+
+
+def _peak_text(peak: float | None, held: float | None) -> str:
+    if peak is None:
+        return "peak memory not measured (cpu)"
+    return f"peak memory {peak:.1f} MiB above the {held:.1f} MiB earlier phases hold"
+
+
+def _selection_launches() -> dict:
+    """B1, B2 and B3's launches since the last reset, B2's and B3's per
+    instance as their C entry points report them."""
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.similarity import similarity as sk
+
+    return {"similarity": sk.launches,
+            "fl_gains_gram_free": dict(fk.gram_free_launches),
+            "fl_gains_gram_free_delta": dict(fk.delta_launches)}
+
+
+def _lazy_summary(runs, seconds: float) -> dict:
+    """Steps of the recorded lazy passes: each pass launches B2 once at its
+    init and once per full recompute (rows_evaluated == n), B3 once per
+    lazy step (0 < rows_evaluated < n)."""
+    rows = [(r.rows_evaluated, n) for r, n in runs]
+    steps = sum(int((r > 0).sum()) for r, _ in rows)
+    lazy = torch.cat([r[(r > 0) & (r < n)] for r, n in rows]) if rows else torch.zeros(0)
+    sizes, counts = torch.unique(lazy.long(), return_counts=True)
+    return {"passes": len(runs), "steps": steps,
+            "full_recomputes": sum(int((r == n).sum()) for r, n in rows),
+            "lazy_steps": len(lazy), "gather_sizes": dict(zip(sizes.tolist(), counts.tolist())),
+            "us_per_step": seconds / steps * 1e6 if steps else None}
+
+
+def _check_artifact(md, m: int, n_subsets: int, stamp: dict) -> None:
+    k = md.k
+    assert md.sge_subsets.shape == (n_subsets, k), md.sge_subsets.shape
+    assert all(len(np.unique(s)) == k and s.min() >= 0 and s.max() < m for s in md.sge_subsets), \
+        "every bank slot holds k unique in-range rows"
+    assert int(md.class_budgets.sum()) == k, "class_budgets sum to k"
+    assert np.isfinite(md.wre_probs).all() and (md.wre_probs >= 0).all()
+    total = float(md.wre_probs.astype(np.float64).sum())
+    assert abs(total - 1.0) <= 1e-5, f"wre_probs sum to {total!r}"
+    for key, want in stamp.items():
+        assert md.config.get(key) == want, (key, md.config.get(key), want)
+
+
+def _reload_and_refuse(md, x, y, session_kw: dict, dev) -> None:
+    """A second session reloads the artifact; one whose refine_factor
+    disagrees refuses it."""
+    from repro_torch.core.metadata import MetadataMismatchError
+    from repro_torch.selection import MiloSession
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "hier.npz")
+        md.save(path)
+        reuse = MiloSession(metadata_path=path, device=dev, **session_kw)
+        assert reuse.preprocess(x, y).config_hash() == md.config_hash() and reuse.loaded_from_artifact
+        bad = MiloSession(metadata_path=path, device=dev,
+                          **dict(session_kw, refine_factor=session_kw["refine_factor"] + 1))
+        try:
+            bad.preprocess(x, y)
+        except MetadataMismatchError as e:
+            log(f"artifact reloads (config_hash {md.config_hash()}); refine_factor "
+                f"{session_kw['refine_factor'] + 1} refuses it: {str(e).split(': ', 1)[1]}")
+        else:
+            raise AssertionError("a session with another refine_factor reused the artifact")
+
+
+def _hier_session(dev, x, y, tx, ty, session_kw: dict, *, epochs: int, label: str,
+                  warm: bool) -> dict:
+    """Preprocess (stage times, launches, peak memory) and train one
+    hierarchical session; with ``warm``, ``warmup`` runs first."""
+    from repro_torch.core import milo as milo_mod
+    from repro_torch.core.partition import proportional_budgets
+    from repro_torch.kernels.similarity import ops as sim_ops
+    from repro_torch.selection import MiloSession
+
+    session = MiloSession(total_epochs=epochs, lr=0.01, device=dev, **session_kw)
+    cfg = session.config
+    pre = cfg.preprocessor(dev)
+    parts = pre.partition_strategy().partition(y, len(x))
+    k = max(1, int(round(cfg.subset_fraction * len(x))))
+    budgets = proportional_budgets(parts, k)
+    rf = cfg.refine_factor
+    buckets = [(len(p.indices), b) for p, b in zip(parts, budgets)]
+    widths = [min(n, rf * b) for n, b in buckets]
+    runs_n = sorted({milo_mod._next_pow2(n) for n, _ in buckets})
+    runs_k = sorted({min(milo_mod._next_pow2(n), milo_mod._next_pow2(w))
+                     for (n, _), w in zip(buckets, widths)})
+    sizes = [n for n, _ in buckets]
+    log(f"{label}: {len(parts)} partitions of {min(sizes)}-{max(sizes)} rows (run at {runs_n}), "
+        f"bank widths {min(widths)}-{max(widths)} (run at {runs_k}); each of the "
+        f"{cfg.n_sge_subsets} bank slots cuts its union of {sum(widths)} rows to k = {k}")
+    out = {"partitions": len(parts), "rows": [min(sizes), max(sizes)], "union": sum(widths),
+           "k": k, "bank_widths": [min(widths), max(widths)], "run_rows": runs_n,
+           "run_widths": runs_k}
+    if warm:
+        geometries = len({(n, w) for (n, _), w in zip(buckets, widths) if w > 0})
+        _sync(dev)
+        t0 = time.perf_counter()
+        count = pre.warmup(buckets, x.shape[1])
+        _sync(dev)
+        out["warmup_s"] = time.perf_counter() - t0
+        log(f"warmup: {count} partition geometries and the union's in {out['warmup_s']:.3f} s "
+            f"(expected {geometries})")
+        assert count == geometries, (count, geometries)
+    unions: list = []
+    orig_refine = milo_mod.MiloPreprocessor._refine_indices
+
+    def refine_recorded(self, feats_u, k_u, easy):
+        if not unions:
+            unions.append(np.array(feats_u))
+        return orig_refine(self, feats_u, k_u, easy)
+
+    stages = {"gram": "gram_matrix_blocked", "sge": "run_sge", "wre": "greedy_importance",
+              "refine": "run_refine"}
+    held = _reset_peak(dev)
+    sim_ops_copies = sim_ops.copies
+    milo_mod.MiloPreprocessor._refine_indices = refine_recorded
+    try:
+        with _stage_times(milo_mod, stages, dev) as times, \
+                _stage_times(milo_mod.MiloPreprocessor, {"refine_bank": "_refine_bank"}, dev) as bank, \
+                _lazy_runs() as runs:
+            _reset_launches()
+            t0 = time.perf_counter()
+            md = session.preprocess(x, y)
+            _sync(dev)
+            t_pre = time.perf_counter() - t0
+            launches = _selection_launches()
+    finally:
+        milo_mod.MiloPreprocessor._refine_indices = orig_refine
+    peak = _peak_mib(dev, held)
+    t0 = time.perf_counter()
+    report = session.train(x, y, test_x=tx, test_y=ty)
+    t_train = time.perf_counter() - t0
+    times.update(bank)
+    lazy = _lazy_summary(runs, times.get("wre", 0.0))
+    log(f"preprocess {t_pre:.3f} s: gram {times.get('gram', 0.0):.3f} s (the partitions' and the "
+        f"unions'), sge bank {times['sge']:.3f} s, wre importance {times['wre']:.3f} s, refine "
+        f"{times['refine']:.3f} s (the whole level-1 bank, gathers and union Grams included: "
+        f"{times['refine_bank']:.3f} s)")
+    if runs:
+        log(f"lazy wre: {lazy['passes']} passes, {lazy['steps']} steps "
+            f"({lazy['us_per_step']:.1f} us per step), {lazy['full_recomputes']} full recomputes; "
+            f"B3 gather sizes b (b: calls) {lazy['gather_sizes']}")
+    log(f"launches: {launches}; similarity copies {sim_ops.copies - sim_ops_copies}")
+    log(f"train {t_train:.3f} s ({report.train_time:.3f} s timed loop, {report.steps} steps), "
+        f"final test accuracy {report.final_acc:.4f}; preprocess {_peak_text(peak, held)}")
+    stamp = {key: md.config.get(key) for key in ("partition", "partition_block",
+                                                 "partition_seed", "refine_factor")}
+    want = pre.partition_strategy().config()
+    want["refine_factor"] = rf
+    _check_artifact(md, len(x), cfg.n_sge_subsets, want)
+    assert all(stamp[key] is None for key in set(stamp) - set(want)), stamp
+    log(f"partition keys stamped: { {key: v for key, v in stamp.items() if v is not None} }")
+    assert report.final_acc >= 0.5, f"test accuracy {report.final_acc} is near chance"
+    assert sim_ops.copies == sim_ops_copies, "the path hands the similarity kernel rows in place"
+    _reload_and_refuse(md, x, y, dict(session_kw, total_epochs=epochs, lr=0.01), dev)
+    out.update(preprocess_s=t_pre, stages=times, lazy=lazy, launches=launches, peak_mib=peak,
+               held_mib=held, train_s=t_train, accuracy=report.final_acc,
+        union_rows=unions[0] if unions else None, md=md)
+    return out
+
+
+def phase_hier_dense(dev, x, y, tx, ty, *, block: int, epochs: int) -> dict:
+    """16a: the dense route (B1 for every block's Gram and every slot's
+    union Gram) with balanced blocks and rf 2, warmed first."""
+    from repro_torch.core.similarity import gram_matrix_blocked
+    from repro_torch.kernels.similarity import similarity as sim_kernel
+
+    log(f"== phase 16a: hierarchical dense route (balanced_blocks {block}, refine_factor 2, B1)")
+    kw = dict(use_pallas=True, partition="balanced_blocks", partition_block=block, refine_factor=2)
+    out = _hier_session(dev, x, y, tx, ty, kw, epochs=epochs, label="16a", warm=True)
+    n_blocks = sum(math.ceil(int(c) / block) for c in np.bincount(y))
+    assert out["partitions"] == n_blocks, (out["partitions"], n_blocks)
+    gram_block = 2048
+    union_tiles = math.ceil(out["union"] / gram_block)
+    expected = n_blocks + 8 * union_tiles
+    if dev.type == "cuda":
+        assert out["launches"]["similarity"] == expected, (out["launches"], expected)
+        assert sum(out["launches"]["fl_gains_gram_free"].values()) == 0
+    log(f"B1 launches {out['launches']['similarity']} (expected {n_blocks} block Grams + 8 slots x "
+        f"{union_tiles} union tiles = {expected})")
+    # B1 against its plain version at the union's shape (not a multiple of the tile)
+    z_u = torch.as_tensor(out.pop("union_rows"), device=dev)
+    before = sim_kernel.launches
+    A_k = gram_matrix_blocked(z_u, block=gram_block, use_pallas=True)
+    if dev.type == "cuda":
+        assert sim_kernel.launches == before + union_tiles
+    A_p = gram_matrix_blocked(z_u, block=gram_block, use_pallas=False)
+    out["max_abs_err"] = _check(f"similarity at the union Gram ({len(z_u)}, {len(z_u)}, "
+                                f"{z_u.shape[1]}) in tiles of {gram_block}", A_k, A_p,
+                                TOL[torch.float32])
+    del z_u, A_k, A_p
+    return out
+
+
+def phase_hier_gram_free(dev, x, y, tx, ty, *, block: int, epochs: int) -> dict:
+    """16b: phase 7's gram-free lazy facility-location path over random
+    blocks with rf 2 (B2, B3 in every block's lazy WRE pass)."""
+    log(f"== phase 16b: hierarchical gram-free lazy route (random_blocks {block}, refine_factor 2, "
+        "B2 and B3)")
+    kw = dict(GRAM_FREE_PATH, partition="random_blocks", partition_block=block, refine_factor=2)
+    out = _hier_session(dev, x, y, tx, ty, kw, epochs=epochs, label="16b", warm=False)
+    n_blocks = math.ceil(len(x) / block)
+    assert out["partitions"] == n_blocks and out["lazy"]["passes"] == n_blocks, out["lazy"]
+    lo, hi = len(x) // n_blocks, -(-len(x) // n_blocks)
+    assert out["rows"] == [lo, hi], out["rows"]
+    out.pop("union_rows")
+    if dev.type == "cuda":
+        b2, b3 = out["launches"]["fl_gains_gram_free"], out["launches"]["fl_gains_gram_free_delta"]
+        assert out["launches"]["similarity"] == 0, "the gram-free path builds no Gram"
+        lazy = out["lazy"]
+        assert b2 == {"ring": n_blocks + lazy["full_recomputes"], "tiled": 0}, (b2, lazy)
+        assert sum(b3.values()) == lazy["lazy_steps"] and b3["small_b"] > 0, (b3, lazy)
+    return out
+
+
+def _part_first(name: str, ids_k: torch.Tensor, ids_p: torch.Tensor, g_k: torch.Tensor,
+                g_p: torch.Tensor, n: int) -> int:
+    """Kernel route against plain route: index-exact up to the first parting,
+    which must be a near-tie (4 fp32 ulps of the first gain, the cached
+    gains' resolution, plus rtol 1e-5), as phase 8 holds them."""
+    parted = torch.nonzero(ids_k[:n] != ids_p[:n])
+    t = int(parted[0]) if len(parted) else n
+    tol = 4 * float(np.spacing(np.float32(float(g_p[0]))))
+    if t < n:
+        gap = abs(float(g_k[t]) - float(g_p[t]))
+        log(f"{name}: the routes part at step {t} of {n}: kernel picks {int(ids_k[t])} (gain "
+            f"{float(g_k[t])!r}), plain {int(ids_p[t])} (gain {float(g_p[t])!r}): a gap of "
+            f"{gap:.3e} (near-tie bound {tol:.3e})")
+        assert gap <= tol + 1e-5 * abs(float(g_p[t])), f"{name}: the routes part at a clear gap"
+    else:
+        log(f"{name}: kernel and plain routes index-equal over all {n} steps")
+    before = slice(0, t)
+    np.testing.assert_allclose(g_k[before].cpu().numpy(), g_p[before].cpu().numpy(),
+                               rtol=1e-4, atol=tol)
+    return t
+
+
+def phase_hier_select(dev, x, *, block: int, k: int) -> dict:
+    """16c: ``hierarchical_select`` (facility location, gram-free, kernels)
+    and the registry's ``milo_hier`` (the plain route); block 0's level 0
+    and one refine on both routes."""
+    from repro_torch.core import greedy as greedy_mod
+    from repro_torch.core import milo as milo_mod
+    from repro_torch.core.gram_free import make_gram_free_facility_location
+    from repro_torch.core.partition import RandomBlocks, proportional_budgets
+    from repro_torch.kernels.fl_gains import ops as fl_ops
+    from repro_torch.selection import build_selector
+
+    log(f"== phase 16c: hierarchical_select (facility location, random_blocks {block}, "
+        "refine_factor 2, use_pallas=True) and milo_hier")
+    kernel_rows: list = []
+    union_feats: list = []
+    orig_kernel = milo_mod._hier_kernel
+
+    def kernel_recorded(feats, n_pad, **kw):
+        kernel_rows.append(len(feats))
+        union_feats[:] = [feats]          # the last call's rows: the refine's union
+        return orig_kernel(feats, n_pad, **kw)
+
+    stages = {"level0": "greedy", "refine": "run_refine", "kernel_build": "_hier_kernel"}
+    milo_mod._hier_kernel = kernel_recorded
+    held = _reset_peak(dev)
+    try:
+        with _stage_times(milo_mod, stages, dev) as times, _lazy_runs() as runs:
+            _reset_launches()
+            t0 = time.perf_counter()
+            idx, info = milo_mod.hierarchical_select(
+                x, k, partition="random_blocks", block_size=block, refine_factor=2,
+                fn_name="facility_location", gram_free=True, use_pallas=True, return_info=True,
+                device=dev)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            launches = _selection_launches()
+    finally:
+        milo_mod._hier_kernel = orig_kernel
+    peak = _peak_mib(dev, held)
+    lazy = _lazy_summary(runs, times["refine"])
+    parts = RandomBlocks(block_size=block, seed=0).partition(None, len(x))
+    budgets = proportional_budgets(parts, k)
+    k_sels = [min(len(p.indices), 2 * b) for p, b in zip(parts, budgets)]
+    n_max, k_max = max(len(p.indices) for p in parts), max(k_sels)
+    log(f"hierarchical_select {wall:.3f} s: level 0 {times['level0']:.3f} s ({len(parts)} x "
+        f"{k_max} greedy steps at ({n_max}, {x.shape[1]})), refine {times['refine']:.3f} s "
+        f"({lazy['steps']} lazy steps, {lazy['us_per_step']:.1f} us per step, "
+        f"{lazy['full_recomputes']} full recomputes; B3 gather sizes b (b: calls) "
+        f"{lazy['gather_sizes']}: single-level gathers, as the reference's refine), kernels' inputs "
+        f"{times['kernel_build']:.3f} s")
+    log(f"info {info}; launches {launches}; {_peak_text(peak, held)}")
+    assert idx.shape == (k,) and len(np.unique(idx)) == k and idx.min() >= 0 and idx.max() < len(x)
+    assert info == {"n_partitions": len(parts), "union_size": sum(k_sels),
+                    "peak_partition_rows": n_max, "refine_factor": 2}, info
+    assert kernel_rows == [len(p.indices) for p in parts] + [sum(k_sels)], kernel_rows
+    b2, b3 = launches["fl_gains_gram_free"], launches["fl_gains_gram_free_delta"]
+    level0 = sum(min(k_max, len(p.indices)) for p in parts)
+    assert lazy["passes"] == 1, "one lazy refine"
+    if dev.type == "cuda":
+        # one B2 a level-0 step, plus the refine's init and full recomputes;
+        # one B3 a lazy step of the refine, each on the instance its gather
+        # size takes (single-level gathers of the whole budget: > 64 rows, tiled)
+        assert b2 == {"ring": level0 + 1 + lazy["full_recomputes"], "tiled": 0}, (b2, lazy)
+        small = sum(c for b, c in lazy["gather_sizes"].items() if b <= 64)
+        assert b3 == {"small_b": small, "tiled": lazy["lazy_steps"] - small}, (b3, lazy)
+        assert launches["similarity"] == 0
+
+    # block 0's level 0 and the refine, on both routes
+    fn_k = make_gram_free_facility_location(use_pallas=True)
+    fn_p = make_gram_free_facility_location(use_pallas=False)
+    kern = dict(gram_free=True, metric="cosine", gram_block=2048, device=dev)
+    A, valid = milo_mod._hier_kernel(x[parts[0].indices], n_max, use_pallas=True, **kern)
+    res = {}
+    for name, fn in (("kernel", fn_k), ("plain", fn_p)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res[name] = greedy_mod.greedy(fn, A, k_max, valid=valid, n=n_max)
+        _sync(dev)
+        res[name + "_s"] = time.perf_counter() - t0
+    log(f"block 0's level 0 ({k_max} steps): kernel route {res['kernel_s']:.3f} s, plain route "
+        f"{res['plain_s']:.3f} s")
+    t0_part = _part_first("block 0's level 0", res["kernel"].indices, res["plain"].indices,
+                          res["kernel"].gains, res["plain"].gains, k_sels[0])
+    # B2 against its plain version at the block's shape, under the cover of its level 0
+    w = res["kernel"].indices[:k_sels[0]]
+    c = torch.where(valid, (0.5 + 0.5 * (A @ A[w].T)).max(dim=1).values,
+                    torch.full_like(valid, float("inf"), dtype=torch.float32))
+    err_b2 = _check(f"fl_gains_gram_free at block 0 ({n_max}, {n_max}, {x.shape[1]}) under its "
+                    "level-0 cover", fl_ops.fl_gains_gram_free(A, A, c),
+                    fl_ops.fl_gains_gram_free(A, A, c, use_pallas=False), fl_tol(n_max))
+    del A, valid
+
+    (union,) = union_feats
+    A, valid = milo_mod._hier_kernel(union, len(union), use_pallas=True, **kern)
+    budget = max(1, int(len(union) * 0.125))
+    for name, fn in (("kernel", fn_k), ("plain", fn_p)):
+        _sync(dev)
+        t0 = time.perf_counter()
+        res["refine_" + name] = greedy_mod.refine(fn, A, k, valid=valid, lazy_budget=budget)
+        _sync(dev)
+        res["refine_" + name + "_s"] = time.perf_counter() - t0
+    log(f"the refine ({len(union)} rows to {k}, lazy budget {budget}): kernel route "
+        f"{res['refine_kernel_s']:.3f} s, plain route {res['refine_plain_s']:.3f} s")
+    t_part = _part_first("the refine", res["refine_kernel"].indices, res["refine_plain"].indices,
+                         res["refine_kernel"].gains, res["refine_plain"].gains, k)
+    same_run = np.array_equal(union[res["refine_kernel"].indices.cpu().numpy()], x[idx])
+    log(f"the refine's kernel route again picks hierarchical_select's subset: {same_run}")
+    assert same_run, "a rerun of the kernel route picked another subset"
+    # B3 against its plain version at the union's shape: 8 touched rows
+    c_old = (0.5 + 0.5 * (A @ A[res["refine_kernel"].indices[:64]].T)).max(dim=1).values
+    c_new = torch.maximum(c_old, 0.5 + 0.5 * (A @ A[res["refine_kernel"].indices[64]]))
+    rows_t = torch.nonzero(c_new > c_old)[:8, 0]
+    assert len(rows_t) > 0
+    err_b3 = _check(f"fl_gains_gram_free_delta at the union ({len(rows_t)}, {len(union)}, "
+                    f"{x.shape[1]})", fl_ops.fl_gains_gram_free_delta(A[rows_t], A, c_old[rows_t],
+                                                                      c_new[rows_t]),
+                    fl_ops.fl_gains_gram_free_delta(A[rows_t], A, c_old[rows_t], c_new[rows_t],
+                                                    use_pallas=False), fl_tol(len(rows_t)))
+    del A, valid
+
+    # the registry's milo_hier: the reference's plain route on the card
+    _sync(dev)
+    t0 = time.perf_counter()
+    sel = build_selector("milo_hier", features=x, k=k, partition_block=block, device=dev)
+    plan = sel.plan(0)
+    _sync(dev)
+    t_sel = time.perf_counter() - t0
+    plan.validate(len(x))
+    assert plan.phase == "fixed" and len(np.unique(plan.indices)) == k
+    assert sel.info == info, (sel.info, info)
+    z = torch.as_tensor(x, device=dev)
+    z = z / z.norm(dim=1, keepdim=True).clamp_min(1e-8)
+
+    def fl_value(sub: np.ndarray) -> float:
+        zs = z[torch.as_tensor(sub, device=dev)]
+        return sum(float((0.5 + 0.5 * (z[lo:lo + 8192] @ zs.T)).max(dim=1).values.double().sum())
+                   for lo in range(0, len(z), 8192))
+
+    f_k, f_p = fl_value(idx), fl_value(plan.indices)
+    overlap = len(np.intersect1d(idx, plan.indices))
+    log(f"milo_hier (plain route) {t_sel:.3f} s: {overlap} of {k} rows shared with the kernel "
+        f"route; facility-location value {f_p:.6f} against the kernel route's {f_k:.6f} "
+        f"(ratio {f_k / f_p:.8f})")
+    assert abs(f_k / f_p - 1.0) <= 1e-3, "the kernel route's subset covers the data worse"
+    return {"wall_s": wall, "stages": times, "lazy": lazy, "launches": launches, "info": info,
+            "peak_mib": peak, "held_mib": held, "level0_parting": t0_part,
+            "refine_parting": t_part, "route_s": {key: v for key, v in res.items()
+                                                  if key.endswith("_s")},
+            "milo_hier_s": t_sel, "overlap": overlap, "fl_ratio": f_k / f_p,
+            "max_abs_err": {"fl_gains_gram_free": err_b2, "fl_gains_gram_free_delta": err_b3}}
+
+
+def phase_hier_targeted(dev, x, y, *, k: int, n_queries: int) -> dict:
+    """16d: ``milo_targeted`` with queries from class 0, by class, rf 4."""
+    from repro_torch.selection import build_selector
+
+    log(f"== phase 16d: milo_targeted ({n_queries} queries from class 0, k {k}, by_class, "
+        "refine_factor 4)")
+    queries = x[y == 0][:n_queries]
+    _sync(dev)
+    t0 = time.perf_counter()
+    sel = build_selector("milo_targeted", features=x, queries=queries, k=k, labels=y,
+                         partition="by_class", refine_factor=4, device=dev)
+    idx = sel.plan(0).indices
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    assert len(np.unique(idx)) == k and idx.min() >= 0 and idx.max() < len(x)
+    z = torch.as_tensor(x, device=dev)
+    z = z / z.norm(dim=1, keepdim=True).clamp_min(1e-8)
+    q = torch.as_tensor(queries, device=dev)
+    q = q / q.norm(dim=1, keepdim=True)
+
+    def query_fl(sub: np.ndarray) -> float:
+        return float((0.5 + 0.5 * (z[torch.as_tensor(sub, device=dev)] @ q.T)).max(dim=0)
+                     .values.double().sum())
+
+    rand = np.random.default_rng(0).choice(len(x), size=k, replace=False)
+    f_t, f_r = query_fl(idx), query_fl(rand)
+    share = float(np.mean(y[idx] == 0))
+    log(f"milo_targeted {wall:.3f} s, info {sel.info}: query facility-location value {f_t:.6f} "
+        f"against a random subset's {f_r:.6f}; {share:.3f} of the subset from class 0")
+    assert f_t > f_r, "the targeted subset covers the queries no better than a random one"
+    return {"wall_s": wall, "info": sel.info, "query_fl": f_t, "random_query_fl": f_r,
+            "class0_share": share}
+
+
+def phase_hierarchical(dev, x, y, tx, ty, *, smi: str, sizes: dict, epochs: int) -> dict:
+    """Phase 16: the hierarchical path on phase 5's data."""
+    log(f"== phase 16: the hierarchical path on {smi}")
+    t0 = time.perf_counter()
+    dense = phase_hier_dense(dev, x, y, tx, ty, block=sizes["dense_block"], epochs=epochs)
+    gf = phase_hier_gram_free(dev, x, y, tx, ty, block=sizes["gf_block"], epochs=epochs)
+    sel = phase_hier_select(dev, x, block=sizes["gf_block"], k=gf["k"])
+    tgt = phase_hier_targeted(dev, x, y, k=sizes["k_targeted"], n_queries=sizes["n_queries"])
+    for run in (dense, gf):
+        run.pop("md")
+    summary = {"card": smi, "16a": dense, "16b": gf, "16c": sel, "16d": tgt,
+               "total_s": time.perf_counter() - t0}
+    log("phase 16 summary: " + json.dumps(summary, default=float))
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-15 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-16 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -1759,6 +2276,8 @@ def main() -> int:
         phase_fused_training(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
                              md, epochs=4, superstep=2)
         phase_tuning(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"], md)
+        phase_hierarchical(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
+                           smi="cpu (rehearsal)", sizes=HIER_SIZES["rehearsal"], epochs=12)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -1786,6 +2305,8 @@ def main() -> int:
     serving = phase_lm_serving(dev, rehearsal=False)
     phase_fused_training(dev, *train_data.values(), md, epochs=12)
     phase_tuning(dev, *train_data.values(), md)
+    hier = phase_hierarchical(dev, *train_data.values(), smi=dev_info["smi"],
+                              sizes=HIER_SIZES["full"], epochs=12)
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
         ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",
@@ -1878,6 +2399,14 @@ def main() -> int:
                  "dynamic_smem_bytes": _build.function("fl_gains_gram_free_ring_smem_bytes", [])()},
         "tiled": {"launches": b2_instances["tiled"],
                   "ptxas": ptxas_stats(report, "gram_free_kernelILb0EE")}}
+    # phase 16: each kernel's launches on the hierarchical path (per
+    # sub-phase, per instance) and its error against its plain version there
+    sim["phase16"] = {"launches": {"16a": hier["16a"]["launches"]["similarity"]},
+                      "max_abs_err": hier["16a"]["max_abs_err"]}
+    for kern in (b2, delta):
+        kern["phase16"] = {"launches": {sub: hier[sub]["launches"][kern["name"]]
+                                        for sub in ("16b", "16c")},
+                           "max_abs_err": hier["16c"]["max_abs_err"][kern["name"]]}
     spills = [v for k in (sim["ptxas"], delta["instances"]["small_b"]["ptxas"]) for v in k.values()]
     spills.append(b2["instances"]["ring"]["ptxas"])
     log(f"similarity: {sim['ptxas']}, dynamic shared memory {sim['dynamic_smem_bytes']} bytes")

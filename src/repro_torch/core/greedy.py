@@ -22,7 +22,8 @@ Randomness: ``stochastic_greedy`` and ``sge`` draw their Gumbel noise from a
 over the rows whose cover moved.  Its branch between a lazy correction and
 a full recompute depends on the touched-row count, so each of its steps
 reads one count back to the host (the reference's ``lax.cond``).
-``refine`` waits for the hierarchical path (ROADMAP A8).
+``refine`` is the hierarchical path's level-1 pass: ``lazy_greedy`` or
+``greedy`` over the union of level-0 winners.
 """
 from __future__ import annotations
 
@@ -322,3 +323,29 @@ def greedy_importance(
     g = torch.full((n_,), _NEG, dtype=torch.float32, device=K.device)
     g = g.scatter_reduce(0, res.indices, res.gains, reduce="amax")
     return torch.where(g <= _NEG / 2, torch.zeros_like(g), g)
+
+
+def refine(
+    fn: SetFunction,
+    K: torch.Tensor,
+    k: int,
+    *,
+    valid: torch.Tensor | None = None,
+    n: int | None = None,
+    lazy_budget: int | None = None,
+    two_level: bool = False,
+    verify_argmax: bool = False,
+) -> GreedyResult:
+    """Level-1 refine: exact greedy over a union of level-0 winners.
+
+    ``K`` holds only the union's rows.  The lazy engine runs when a budget
+    is given, the set function has lazy hooks and ``1 <= lazy_budget < n``
+    (the rule ``greedy_importance`` applies); otherwise plain ``greedy``,
+    so disparity and graph-cut refines work too.
+    """
+    n_ = K.shape[0] if n is None else n
+    if lazy_budget is not None and fn.lazy is not None and 1 <= lazy_budget < n_:
+        res = lazy_greedy(fn, K, k, budget=lazy_budget, valid=valid, n=n_,
+                          two_level=two_level, verify_argmax=verify_argmax)
+        return GreedyResult(res.indices, res.gains)
+    return greedy(fn, K, k, valid=valid, n=n_)

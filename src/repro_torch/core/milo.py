@@ -1,14 +1,20 @@
 """MILO orchestrator (paper Alg. 1): preprocessing + per-epoch subset serving.
 
-Port of ``repro.core.milo`` on the flat by-class path:
+Port of ``repro.core.milo``:
 
 ``MiloPreprocessor.preprocess`` runs once per (dataset, k):
-  1. class-wise partition of the feature matrix,
-  2. per class: Gram matrix -> SGE with graph-cut (the easy-subset bank),
-  3. per class: full greedy with disparity-min -> importance ->
+  1. partition of the feature matrix (``core.partition``: by class, the
+     paper's split and the default, or into bounded blocks),
+  2. per partition: Gram matrix -> SGE with graph-cut (the easy-subset
+     bank), oversampled to ``min(n_c, refine_factor·k_c)`` rows a slot,
+  3. per partition: full greedy with disparity-min -> importance ->
      Taylor-softmax probabilities (WRE),
-  4. merge to global indices; return a ``MiloMetadata`` artifact whose
-     config (and ``config_hash``) is key-for-key the reference's.
+  4. merge to global indices; with ``refine_factor > 1`` each bank slot's
+     union is cut back to k by a level-1 greedy (``greedy.refine``);
+     return a ``MiloMetadata`` artifact whose config (and ``config_hash``)
+     is key-for-key the reference's.  Partition provenance is stamped only
+     off the flat path (``by_class`` with ``refine_factor == 1``), so flat
+     hashes do not move.
 
 With ``gram_free=True`` no Gram is built: the set functions of
 ``core.gram_free`` contract the row-normalised features directly (O(n·d)
@@ -17,6 +23,11 @@ through ``greedy.lazy_greedy``.
 
 ``MiloSelector`` serves the subsets during training: an SGE-bank lookup or
 one Gumbel top-k WRE draw per epoch window.
+
+``hierarchical_select`` and ``targeted_select`` are the one-shot two-level
+selections (deterministic greedy inside every partition, then a refine over
+the union of winners) behind the ``milo_hier`` and ``milo_targeted``
+selectors; peak memory follows the partition size, not the ground set's.
 
 Randomness: the SGE draws come from a ``torch.Generator`` seeded by
 ``preprocess``'s ``seed``, the WRE draws from one seeded by (seed, window).
@@ -35,9 +46,17 @@ import torch
 from repro_torch.core import gram_free as gram_free_mod, submodular
 from repro_torch.core.curriculum import CurriculumConfig
 from repro_torch.core.exploration import taylor_softmax, weighted_sample_without_replacement
-from repro_torch.core.greedy import greedy_importance, sge as run_sge, stochastic_candidate_count
+from repro_torch.core.greedy import (
+    greedy,
+    greedy_importance,
+    refine as run_refine,
+    sge as run_sge,
+    stochastic_candidate_count,
+)
 from repro_torch.core.metadata import MiloMetadata
 from repro_torch.core.partition import (
+    Partition,
+    PartitionStrategy,
     make_partition_strategy,
     merge_class_selections,
     proportional_budgets,
@@ -50,8 +69,6 @@ from repro_torch.device import resolve_device
 UNPORTED_PREPROCESS = {
     "shard_selection": (False, "A11 (multi-device selection)"),
     "firewall": (None, "A9 (health firewall)"),
-    "partition": ("by_class", "A8 (hierarchical path)"),
-    "refine_factor": (1, "A8 (hierarchical path)"),
 }
 
 
@@ -59,10 +76,7 @@ def refuse_unported(obj: Any, table: dict[str, tuple[Any, str]]) -> None:
     """Raise ``NotImplementedError`` for a knob set away from the one value
     the port supports, naming the ROADMAP item that will port it."""
     for name, (allowed, item) in table.items():
-        val = getattr(obj, name)
-        if name == "refine_factor":
-            val = max(1, int(val))  # the reference treats rf <= 1 as off
-        if val != allowed:
+        if getattr(obj, name) != allowed:
             raise NotImplementedError(
                 f"{type(obj).__name__}.{name}={getattr(obj, name)!r} is not "
                 f"ported yet (ROADMAP {item}); the port supports {allowed!r}"
@@ -125,6 +139,11 @@ class MiloPreprocessor:
     def __post_init__(self, device):
         refuse_unported(self, UNPORTED_PREPROCESS)
         self.device = resolve_device(device)
+
+    def partition_strategy(self) -> PartitionStrategy:
+        """The level-0 decomposition this preprocessor applies."""
+        return make_partition_strategy(
+            self.partition, block_size=self.partition_block, seed=self.partition_seed)
 
     def _lazy_budget(self, n_run: int, fn: submodular.SetFunction) -> int | None:
         """Touched-rows budget of the WRE full-greedy pass, or None when lazy
@@ -190,6 +209,84 @@ class MiloPreprocessor:
         return (subs[:, :k_c].cpu().numpy().astype(np.int64),
                 imp[:n_c].cpu().numpy().astype(np.float32))
 
+    def _refine_indices(self, feats_u: np.ndarray, k: int,
+                        easy: submodular.SetFunction) -> np.ndarray:
+        """Level-1 pass: exact greedy (the easy_fn objective) over the union
+        of level-0 winners, lazy-routed like the WRE pass, on the device
+        (the dense route builds the union's Gram through ``gram_matrix_blocked``,
+        so ``use_pallas`` sends it to the similarity kernel).  Returns local
+        indices into ``feats_u``."""
+        z = torch.as_tensor(feats_u, device=self.device)
+        n_u = z.shape[0]
+        if self.gram_free:
+            A = normalize_rows(z.float())
+        else:
+            A = gram_matrix_blocked(z, metric=self.metric, block=self.gram_block,
+                                    use_pallas=self.use_pallas)
+        res = run_refine(easy, A, k, lazy_budget=self._lazy_budget(n_u, easy),
+                         two_level=self.lazy_two_level)
+        return res.indices.cpu().numpy().astype(np.int64)
+
+    def _refine_bank(
+        self,
+        features: np.ndarray,
+        parts: Sequence[Partition],
+        per_class_sge: Sequence[np.ndarray],
+        k: int,
+        easy: submodular.SetFunction,
+    ) -> np.ndarray:
+        """Cut each oversampled bank slot back down to exactly k.  Every
+        slot's union has the same size, Σ min(n_c, rf·k_c)."""
+        slots = []
+        for i in range(self.n_sge_subsets):
+            union = merge_class_selections(parts, [s[i] for s in per_class_sge])
+            if len(union) <= k:
+                slots.append(union)
+                continue
+            slots.append(union[self._refine_indices(features[union], k, easy)])
+        return np.stack(slots, axis=0)
+
+    def warmup(self, buckets: Sequence[tuple[int, int]], d: int, *, seed: int = 0) -> int:
+        """Replay the selection path on dummy features for the given
+        partition geometries, discarding the outputs.
+
+        ``buckets`` holds the true per-partition ``(n_c, k_c)`` shapes an
+        upcoming ``preprocess`` will see; ``d`` is the feature width.  Each
+        distinct ``(n_c, min(n_c, rf·k_c))`` pair runs the whole
+        per-partition path (bucketing, masking, engine routing,
+        Taylor-softmax), and with ``refine_factor > 1`` the level-1 refine
+        runs once at the union's geometry.  On the card this loads the
+        kernel library and warms the caching allocator before
+        ``preprocess``; it captures no graph (the engines are Python loops,
+        ROADMAP A3).  Returns the number of partition geometries run, the
+        reference's count for the same ``buckets``.
+        """
+        bucket_list = [(int(n_c), int(k_c)) for n_c, k_c in buckets]
+        # mirror preprocess: bucketing only deduplicates across >1 partition
+        bucket = self.bucket_classes and len(bucket_list) > 1
+        easy = self._set_fn(self.easy_fn)
+        hard = self._set_fn(self.hard_fn)
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        rng = np.random.default_rng(0)
+        rf = max(1, int(self.refine_factor))
+        seen: set[tuple[int, int]] = set()
+        for n_c, k_c in bucket_list:
+            k_sel = min(n_c, rf * k_c)
+            if k_sel <= 0 or (n_c, k_sel) in seen:
+                continue
+            seen.add((n_c, k_sel))
+            dummy = rng.normal(size=(n_c, d)).astype(np.float32)
+            _, imp = self._class_selection(dummy, k_sel, bucket=bucket, easy=easy,
+                                           hard=hard, generator=gen)
+            taylor_softmax(torch.from_numpy(imp))
+        if rf > 1:
+            n_union = sum(min(n_c, rf * k_c) for n_c, k_c in bucket_list if k_c > 0)
+            k_total = sum(k_c for _, k_c in bucket_list if k_c > 0)
+            if 0 < k_total < n_union:
+                dummy = rng.normal(size=(n_union, d)).astype(np.float32)
+                self._refine_indices(dummy, k_total, easy)
+        return len(seen)
+
     def preprocess(
         self,
         features: np.ndarray,
@@ -204,8 +301,10 @@ class MiloPreprocessor:
         device; ``prep_seed`` is provenance only (recorded in the config).
 
         ``sge_noise[i]`` (keyword-only) replaces the Gumbel draws of the
-        i-th partition (classes in ascending label order): an
-        (n_sge_subsets, k_run, n_run) array in the run's (bucketed) geometry.
+        i-th partition (in the strategy's partition order; classes in
+        ascending label order): an (n_sge_subsets, k_run, n_run) array in
+        the run's (bucketed) geometry, where k_run is the bucket of the
+        oversampled bank width ``min(n_c, refine_factor·k_c)``.
         """
         features = np.asarray(features)
         if self.gram_free and self.metric != "cosine":
@@ -217,10 +316,15 @@ class MiloPreprocessor:
         k = max(1, int(round(self.subset_fraction * m)))
         labels_arr = (np.zeros((m,), np.int64) if labels is None
                       else np.asarray(labels, np.int64))
-        strategy = make_partition_strategy(self.partition)
+        strategy = self.partition_strategy()
+        # label-free strategies ignore the labels; by_class without labels
+        # (or classwise off) gives the single catch-all partition
         parts = strategy.partition(
             None if labels is None or not self.classwise else labels_arr, m)
         budgets = proportional_budgets(parts, k)
+        rf = max(1, int(self.refine_factor))
+        # oversampled per-partition bank widths (== budgets when rf == 1)
+        sel_widths = [min(len(p.indices), rf * b) for p, b in zip(parts, budgets)]
         easy = self._set_fn(self.easy_fn)
         hard = self._set_fn(self.hard_fn)
         # bucketing only deduplicates across >1 partition (as the reference)
@@ -230,14 +334,14 @@ class MiloPreprocessor:
         per_class_sge: list[np.ndarray] = []
         wre_probs = np.zeros((m,), np.float32)
         wre_importance = np.zeros((m,), np.float32)
-        for i, (part, k_c) in enumerate(zip(parts, budgets)):
+        for i, (part, k_sel) in enumerate(zip(parts, sel_widths)):
             n_c = len(part.indices)
-            if k_c <= 0:
+            if k_sel <= 0:
                 per_class_sge.append(np.zeros((self.n_sge_subsets, 0), np.int64))
                 imp = np.zeros((n_c,), np.float32)
             else:
                 subs_c, imp = self._class_selection(
-                    features[part.indices], k_c, bucket=bucket, easy=easy, hard=hard,
+                    features[part.indices], k_sel, bucket=bucket, easy=easy, hard=hard,
                     generator=gen, noise=None if sge_noise is None else sge_noise[i],
                 )
                 per_class_sge.append(subs_c)
@@ -248,9 +352,13 @@ class MiloPreprocessor:
             wre_probs[part.indices] = p_local * (n_c / m)
 
         wre_probs = _normalize_probs(wre_probs)
-        sge_subsets = np.stack(
-            [merge_class_selections(parts, [s[i] for s in per_class_sge])
-             for i in range(self.n_sge_subsets)], axis=0)
+        if rf > 1:
+            # level 1: each slot's oversampled union refined down to k
+            sge_subsets = self._refine_bank(features, parts, per_class_sge, k, easy)
+        else:
+            sge_subsets = np.stack(
+                [merge_class_selections(parts, [s[i] for s in per_class_sge])
+                 for i in range(self.n_sge_subsets)], axis=0)
         config = dict(
             subset_fraction=self.subset_fraction,
             k=int(sge_subsets.shape[1]),
@@ -271,6 +379,11 @@ class MiloPreprocessor:
             encoder_id=encoder_id,
             prep_seed=prep_seed,
         )
+        # partition provenance only off the flat path: flat configs (and
+        # their config_hash) stay key for key the pre-hierarchy ones
+        if strategy.name != "by_class" or rf > 1:
+            config.update(strategy.config())
+            config["refine_factor"] = rf
         return MiloMetadata(
             sge_subsets=sge_subsets,
             wre_probs=wre_probs,
@@ -334,3 +447,202 @@ class MiloSelector:
             ).cpu().numpy().astype(np.int64)
         self._cache_epoch, self._cache = epoch, idx
         return idx
+
+
+def _hier_kernel(
+    feats: np.ndarray,
+    n_pad: int,
+    *,
+    gram_free: bool,
+    metric: str,
+    gram_block: int,
+    use_pallas: bool,
+    device: torch.device,
+    pre_normalized: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(engine kernel, valid mask) for one partition, padded to ``n_pad``:
+    zero feature rows (gram-free) or zero Gram rows and columns past the
+    partition's rows, as the reference pads every partition to one shape.
+    The masking is exact, so the first n-valid picks equal the unpadded
+    run's."""
+    z = torch.as_tensor(np.asarray(feats, np.float32), device=device)
+    n = z.shape[0]
+    if gram_free:
+        A = torch.zeros((n_pad, z.shape[1]), dtype=torch.float32, device=device)
+        A[:n] = z if pre_normalized else normalize_rows(z)
+    else:
+        A = gram_matrix_blocked(z, metric=metric, block=gram_block, use_pallas=use_pallas,
+                                n_pad=n_pad)
+    return A, torch.arange(n_pad, device=device) < n
+
+
+def _two_level_select(
+    features: np.ndarray,
+    k: int,
+    parts: Sequence[Partition],
+    budgets: Sequence[int],
+    rf: int,
+    fn: submodular.SetFunction,
+    *,
+    gram_free: bool,
+    metric: str = "cosine",
+    gram_block: int = 2048,
+    use_pallas: bool = False,
+    lazy_threshold: float | None = 0.125,
+    pre_normalized: bool = False,
+    device: torch.device,
+) -> tuple[np.ndarray, dict]:
+    """Shared partition-then-refine selection (deterministic greedy, both levels).
+
+    Level 0: exact greedy inside every partition, each padded to the largest
+    partition's ``n_max`` rows and run for the largest width ``k_max``, of
+    whose picks the first ``min(n_c, rf·k_c)`` are kept (the reference's
+    geometry, so the trajectories are its); level 1: ``greedy.refine`` over
+    the union of winners down to exactly ``k``.  Peak device memory is
+    O(n_max·d) gram-free (O(n_max²) with a Gram): the partition size, not
+    the ground set's.
+    """
+    kern = dict(gram_free=gram_free, metric=metric, gram_block=gram_block,
+                use_pallas=use_pallas, device=device, pre_normalized=pre_normalized)
+    active = [(p, b) for p, b in zip(parts, budgets) if b > 0 and len(p.indices) > 0]
+    if not active:
+        return np.zeros((0,), np.int64), {
+            "n_partitions": len(parts), "union_size": 0,
+            "peak_partition_rows": 0, "refine_factor": rf,
+        }
+    k_sels = [min(len(p.indices), rf * b) for p, b in active]
+    n_max = max(len(p.indices) for p, _ in active)
+    k_max = max(k_sels)
+    winners = []
+    for (p, _), k_sel in zip(active, k_sels):
+        A, valid = _hier_kernel(features[p.indices], n_max, **kern)
+        res = greedy(fn, A, k_max, valid=valid, n=n_max)
+        # the first k_sel picks of the padded run are the unpadded run's
+        local = res.indices[:k_sel].cpu().numpy().astype(np.int64)
+        winners.append(np.asarray(p.indices, np.int64)[local])
+    union = np.concatenate(winners)
+    if len(union) > k:
+        n_u = len(union)
+        A, valid = _hier_kernel(features[union], n_u, **kern)
+        lazy_budget = None
+        if lazy_threshold is not None and fn.lazy is not None:
+            b = max(1, int(n_u * lazy_threshold))
+            lazy_budget = b if b < n_u else None
+        res = run_refine(fn, A, k, valid=valid, lazy_budget=lazy_budget)
+        selected = union[res.indices.cpu().numpy().astype(np.int64)]
+    else:
+        selected = union
+    info = {
+        "n_partitions": len(parts),
+        "union_size": int(len(union)),
+        "peak_partition_rows": int(n_max),
+        "refine_factor": rf,
+    }
+    return selected, info
+
+
+def _empty_select(refine_factor: int, return_info: bool):
+    empty = np.zeros((0,), np.int64)
+    info = {"n_partitions": 0, "union_size": 0, "peak_partition_rows": 0,
+            "refine_factor": refine_factor}
+    return (empty, info) if return_info else empty
+
+
+def hierarchical_select(
+    features: np.ndarray,
+    k: int,
+    *,
+    labels: np.ndarray | None = None,
+    partition: str | PartitionStrategy = "random_blocks",
+    block_size: int = 4096,
+    seed: int = 0,
+    refine_factor: int = 2,
+    fn_name: str = "facility_location",
+    gram_free: bool = True,
+    metric: str = "cosine",
+    gram_block: int = 2048,
+    use_pallas: bool = False,
+    graph_cut_lambda: float = 0.4,
+    lazy_threshold: float | None = 0.125,
+    return_info: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """One-shot hierarchical subset selection (partition → greedy → refine).
+
+    A :class:`PartitionStrategy` splits the ground set, exact greedy picks
+    ``refine_factor·k_c`` winners inside each partition, and a level-1
+    ``greedy.refine`` over the union returns exactly ``k`` global indices.
+    With ``use_pallas=True`` the gram-free facility-location gains run
+    through the ``fl_gains`` kernels (the lazy refine's corrections too) and
+    a dense Gram through the similarity kernel; ``False`` is the plain route.
+
+    Returns the (k,) int64 global indices; with ``return_info=True`` also a
+    dict of the run's geometry (partition count, union size, peak partition
+    rows, refine factor).
+    """
+    features = np.asarray(features)
+    m = features.shape[0]
+    k = max(0, min(int(k), m))
+    if k == 0:
+        return _empty_select(refine_factor, return_info)
+    strategy = (partition if isinstance(partition, PartitionStrategy)
+                else make_partition_strategy(partition, block_size=block_size, seed=seed))
+    parts = strategy.partition(labels, m)
+    budgets = proportional_budgets(parts, k)
+    rf = max(1, int(refine_factor))
+    pre = MiloPreprocessor(easy_fn=fn_name, gram_free=gram_free, metric=metric,
+                           gram_block=gram_block, use_pallas=use_pallas,
+                           graph_cut_lambda=graph_cut_lambda, device=device)
+    selected, info = _two_level_select(
+        features, k, parts, budgets, rf, pre._set_fn(fn_name), gram_free=gram_free,
+        metric=metric, gram_block=gram_block, use_pallas=use_pallas,
+        lazy_threshold=lazy_threshold, device=pre.device,
+    )
+    return (selected, info) if return_info else selected
+
+
+def targeted_select(
+    features: np.ndarray,
+    queries: np.ndarray,
+    k: int,
+    *,
+    labels: np.ndarray | None = None,
+    partition: str | PartitionStrategy = "by_class",
+    block_size: int = 4096,
+    seed: int = 0,
+    refine_factor: int = 4,
+    return_info: bool = False,
+    device: str | torch.device = "cuda",
+):
+    """Query-conditioned (SMI-style) targeted selection over partition winners.
+
+    ``queries`` holds a few exemplar embeddings of the slice of interest;
+    both levels maximise query facility location, f(S) = Σ_q max_{a∈S}
+    sim(a, q), so the subset covers the queries rather than the ground set.
+    Gram-free cosine only, plain PyTorch (``gram_free.make_query_facility_location``
+    reaches no kernel).  Returns the (k,) int64 global indices (and the
+    geometry dict with ``return_info=True``).
+    """
+    dev = resolve_device(device)
+    features = np.asarray(features)
+    m = features.shape[0]
+    k = max(0, min(int(k), m))
+    if k == 0:
+        return _empty_select(refine_factor, return_info)
+
+    def normalized(a) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return normalize_rows(t).cpu().numpy()
+
+    zn = normalized(features)
+    fn = gram_free_mod.make_query_facility_location(normalized(queries))
+    strategy = (partition if isinstance(partition, PartitionStrategy)
+                else make_partition_strategy(partition, block_size=block_size, seed=seed))
+    parts = strategy.partition(labels, m)
+    budgets = proportional_budgets(parts, k)
+    rf = max(1, int(refine_factor))
+    selected, info = _two_level_select(
+        zn, k, parts, budgets, rf, fn, gram_free=True, pre_normalized=True,
+        lazy_threshold=None, device=dev,
+    )
+    return (selected, info) if return_info else selected

@@ -2,7 +2,7 @@
 
 * ``SelectionPlan`` / ``Selector`` — the weighted per-epoch protocol.
 * ``build_selector(name, **cfg)`` — registry factory (milo, milo_fixed,
-  full, random, adaptive_random so far).
+  milo_hier, milo_targeted, full, random, adaptive_random so far).
 * ``MiloSession`` — one-call facade: ``preprocess()`` / ``train()`` /
   ``tune()``.
 """
@@ -19,6 +19,8 @@ from repro_torch.selection.selectors import (
     FullConfig,
     MiloConfig,
     MiloFixedConfig,
+    MiloHierConfig,
+    MiloTargetedConfig,
     RandomConfig,
 )
 from repro_torch.selection.session import MiloSession, MiloSessionConfig, TrainReport
@@ -26,6 +28,7 @@ from repro_torch.selection.session import MiloSession, MiloSessionConfig, TrainR
 __all__ = [
     "PHASES", "SelectionPlan", "Selector", "uniform_plan", "available_selectors",
     "build_selector", "register", "selector_entry", "AdaptiveRandomConfig",
-    "FullConfig", "MiloConfig", "MiloFixedConfig", "RandomConfig", "MiloSession", "MiloSessionConfig",
+    "FullConfig", "MiloConfig", "MiloFixedConfig", "MiloHierConfig", "MiloTargetedConfig",
+    "RandomConfig", "MiloSession", "MiloSessionConfig",
     "TrainReport",
 ]

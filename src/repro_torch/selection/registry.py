@@ -53,8 +53,8 @@ def register(name: str, config_cls: type, *, paper: str = "", doc: str = ""):
 
 #: registry names of the reference whose strategies are not ported yet
 NOT_PORTED = {
-    "milo_hier": "A8", "milo_targeted": "A8", "el2n": "A9",
-    "selfsup_prune": "A9", "craig_pb": "A9", "gradmatch_pb": "A9", "glister": "A9",
+    "el2n": "A9", "selfsup_prune": "A9", "craig_pb": "A9", "gradmatch_pb": "A9",
+    "glister": "A9",
 }
 
 

@@ -1,5 +1,6 @@
-"""The ported selection strategies: ``milo``, ``milo_fixed``, ``full``,
-``random`` and ``adaptive_random`` (port of ``repro.selection.selectors``).
+"""The ported selection strategies: ``milo``, ``milo_fixed``, ``milo_hier``,
+``milo_targeted``, ``full``, ``random`` and ``adaptive_random`` (port of
+``repro.selection.selectors``).
 
 The other names of the reference's registry raise ``KeyError`` through
 ``registry.selector_entry`` until their slice lands (see ROADMAP).
@@ -15,7 +16,7 @@ import torch
 from repro_torch.baselines import selectors as legacy
 from repro_torch.core.curriculum import CurriculumConfig
 from repro_torch.core.metadata import MiloMetadata
-from repro_torch.core.milo import MiloSelector
+from repro_torch.core.milo import MiloSelector, hierarchical_select, targeted_select
 from repro_torch.selection.base import Selector
 from repro_torch.selection.plan import SelectionPlan, uniform_plan
 from repro_torch.selection.registry import register
@@ -111,6 +112,81 @@ class MiloFixedPlanSelector(Selector):
     def plan(self, epoch: int) -> SelectionPlan:
         return uniform_plan(
             self._inner.indices_for_epoch(epoch), "fixed", epoch, selector="milo_fixed"
+        )
+
+
+@dataclasses.dataclass
+class MiloHierConfig:
+    features: np.ndarray
+    k: int
+    # None → unsupervised partitioning (random_blocks / single block)
+    labels: np.ndarray | None = None
+    # "by_class" | "random_blocks" | "balanced_blocks"
+    partition: str = "random_blocks"
+    partition_block: int = 4096
+    partition_seed: int = 0
+    # level-0 oversampling: each partition keeps min(n_c, refine_factor·k_c)
+    refine_factor: int = 2
+    fn_name: str = "facility_location"
+    gram_free: bool = True
+    # where both levels' greedy runs (the plain route, as in the reference)
+    device: str | torch.device = "cuda"
+
+
+@register("milo_hier", MiloHierConfig, paper="MILO (hierarchical)",
+          doc="two-level partition→greedy→refine subset; partition-sized memory")
+class MiloHierPlanSelector(Selector):
+    """One fixed subset from the hierarchical partition-then-refine pipeline
+    (per-partition greedy + level-1 refine; partition-sized peak memory)."""
+
+    def __init__(self, cfg: MiloHierConfig):
+        self.cfg = cfg
+        self._idx, self.info = hierarchical_select(
+            cfg.features, cfg.k, labels=cfg.labels, partition=cfg.partition,
+            block_size=cfg.partition_block, seed=cfg.partition_seed,
+            refine_factor=cfg.refine_factor, fn_name=cfg.fn_name,
+            gram_free=cfg.gram_free, return_info=True, device=cfg.device,
+        )
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(
+            self._idx, "fixed", epoch, selector="milo_hier",
+            partition=self.cfg.partition, refine_factor=self.cfg.refine_factor,
+        )
+
+
+@dataclasses.dataclass
+class MiloTargetedConfig:
+    features: np.ndarray
+    queries: np.ndarray
+    k: int
+    labels: np.ndarray | None = None
+    partition: str = "by_class"
+    partition_block: int = 4096
+    partition_seed: int = 0
+    refine_factor: int = 4
+    device: str | torch.device = "cuda"
+
+
+@register("milo_targeted", MiloTargetedConfig, paper="query FL (SMI)",
+          doc="query-conditioned targeted selection over partition winners")
+class MiloTargetedPlanSelector(Selector):
+    """Fixed query-covering subset: query facility location at both levels,
+    so the plan covers the query slice rather than the whole ground set."""
+
+    def __init__(self, cfg: MiloTargetedConfig):
+        self.cfg = cfg
+        self._idx, self.info = targeted_select(
+            cfg.features, cfg.queries, cfg.k, labels=cfg.labels,
+            partition=cfg.partition, block_size=cfg.partition_block,
+            seed=cfg.partition_seed, refine_factor=cfg.refine_factor,
+            return_info=True, device=cfg.device,
+        )
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(
+            self._idx, "fixed", epoch, selector="milo_targeted",
+            partition=self.cfg.partition, refine_factor=self.cfg.refine_factor,
         )
 
 

@@ -326,18 +326,21 @@ class MiloSession:
         return md
 
     def _partition_mismatch(self, md: MiloMetadata) -> dict[str, tuple]:
-        """Partition provenance shared by artifact load and adopt.  Partition
-        keys are stamped only off the flat path, so their absence means the
-        flat by-class path; block and seed only by the strategies that use
-        them."""
+        """Partition provenance shared by artifact load and adopt (the
+        reference's ``_check_partition_config``).  Partition keys are stamped
+        only off the flat path, so their absence means the flat by-class
+        path: a hierarchical session refuses a flat artifact, and any
+        partition or refine disagreement refuses; block and seed are stamped
+        only by the strategies that use them."""
         cfg = self.config
         bad: dict[str, tuple] = {}
         stored_part = md.config.get("partition", "by_class")
         if stored_part != cfg.partition:
             bad["partition"] = (stored_part, cfg.partition)
         stored_rf = int(md.config.get("refine_factor", 1))
-        if stored_rf != max(1, int(cfg.refine_factor)):
-            bad["refine_factor"] = (stored_rf, cfg.refine_factor)
+        want_rf = max(1, int(cfg.refine_factor))
+        if stored_rf != want_rf:
+            bad["refine_factor"] = (stored_rf, want_rf)
         for key, want in (("partition_block", cfg.partition_block),
                           ("partition_seed", cfg.partition_seed)):
             if key in md.config and int(md.config[key]) != int(want):
@@ -397,10 +400,12 @@ class MiloSession:
         features: np.ndarray | None = None,
         **extra: Any,
     ) -> Selector:
-        """Build this session's selector from the registry (``milo``,
-        ``milo_fixed``, ``full``, ``random``, ``adaptive_random``); ``milo``'s
-        WRE draws and ``milo_fixed``'s greedy run on the session's device,
-        and ``milo`` takes ``wre_noise=`` through ``extra``."""
+        """Build this session's selector from the registry.  ``milo``,
+        ``milo_fixed``, ``full``, ``random`` and ``adaptive_random`` are wired
+        from session state; other strategies (``milo_hier``,
+        ``milo_targeted``) take their inputs (labels, queries, ...) through
+        ``extra``.  Selection runs on the session's device, and ``milo``
+        takes ``wre_noise=`` through ``extra``."""
         cfg = self.config
         name = name or cfg.selector
         selector_entry(name)  # KeyError for names not ported yet
@@ -432,8 +437,18 @@ class MiloSession:
             return build_selector("full", n=n, **extra)
         if name == "random":
             return build_selector("random", n=n, k=k, seed=seed, **extra)
-        return build_selector("adaptive_random", n=n, k=k,
-                              R=extra.pop("R", cfg.R), seed=seed, **extra)
+        if name == "adaptive_random":
+            return build_selector("adaptive_random", n=n, k=k,
+                                  R=extra.pop("R", cfg.R), seed=seed, **extra)
+        # other strategies: forward the session context for every field
+        # their config declares
+        fields = {f.name for f in dataclasses.fields(selector_entry(name).config_cls)}
+        kwargs = dict(extra)
+        for key, val in (("k", k), ("n", n), ("seed", seed), ("features", features),
+                         ("device", self.device)):
+            if key in fields and val is not None:
+                kwargs.setdefault(key, val)
+        return build_selector(name, **kwargs)
 
     # -- stage 2: train any number of downstream models ---------------------
 

@@ -775,3 +775,99 @@ def test_fused_capture_failure_raises(cuda_device):
     st = session._init_classifier(0, feats.shape[1], 5, 16, 0.05, 10, cuda_device)
     with pytest.raises(RuntimeError):
         epoch_engine(syncing_step)(st, bufs, idx[:2], w[:2])
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical path: hierarchical_select's kernel route, the dense
+# refine's union Gram through B1
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_hierarchical_select_kernel_route_matches_plain(cuda_device, monkeypatch):
+    """``hierarchical_select(use_pallas=True)`` (B2 every level-0 step, B2
+    and B3 in the lazy refine) against the plain route at a mid-size shape:
+    the same geometry, index-exact up to the first parting, which must be a
+    near-tie of the two picks' gains over the refine's union (4 fp32 ulps of
+    the larger, recomputed in float64), and the same coverage (rtol 1e-5)."""
+    from repro_torch.core import milo
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(12000, 128)).astype(np.float32)
+    unions = []
+    orig = milo._hier_kernel
+
+    def spy(feats, n_pad, **kw):
+        unions.append(feats)
+        return orig(feats, n_pad, **kw)
+
+    monkeypatch.setattr(milo, "_hier_kernel", spy)
+    kw = dict(partition="random_blocks", block_size=2048, refine_factor=2, return_info=True,
+              device=cuda_device)
+    before = {k: dict(v) for k, v in (("b2", fl_kernel.gram_free_launches),
+                                      ("b3", fl_kernel.delta_launches))}
+    idx_k, info_k = milo.hierarchical_select(x, 600, use_pallas=True, **kw)
+    b2 = fl_kernel.gram_free_launches["ring"] - before["b2"]["ring"]
+    b3 = sum(fl_kernel.delta_launches.values()) - sum(before["b3"].values())
+    idx_p, info_p = milo.hierarchical_select(x, 600, use_pallas=False, **kw)
+    assert info_k == info_p == {"n_partitions": 6, "union_size": 1200,
+                                "peak_partition_rows": 2000, "refine_factor": 2}
+    assert b2 >= 6 * 200 + 1 and b3 > 0, (b2, b3)
+    assert len(np.unique(idx_k)) == 600
+    g = torch.as_tensor(unions[-1], device=cuda_device, dtype=torch.float64)
+    g = g / g.norm(dim=1, keepdim=True)
+    z = torch.as_tensor(x, device=cuda_device, dtype=torch.float64)
+    z = z / z.norm(dim=1, keepdim=True)
+
+    def sim(idx):
+        return 0.5 + 0.5 * g @ z[torch.as_tensor(idx, device=cuda_device)].T
+
+    parted = np.nonzero(idx_k != idx_p)[0]
+    if len(parted):
+        t = int(parted[0])
+        cover = sim(idx_p[:t]).max(dim=1).values
+        ga, gb = (float(torch.relu(sim([j])[:, 0] - cover).sum()) for j in (idx_p[t], idx_k[t]))
+        assert abs(ga - gb) <= 4 * float(np.spacing(np.float32(max(ga, gb)))), (t, ga, gb)
+    np.testing.assert_allclose(float(sim(idx_k).max(dim=1).values.sum()),
+                               float(sim(idx_p).max(dim=1).values.sum()), rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_dense_refine_union_gram_through_b1(cuda_device, monkeypatch):
+    """A dense-route refine over a union of 2,500 rows (one full 2048-row
+    tile and a ragged one): its Gram is B1's, two launches, within the
+    kernel tolerance of ``gram_matrix_blocked(use_pallas=False)``, and its
+    graph-cut picks follow the plain Gram's up to a near-tie (the subsets'
+    objectives on the plain Gram within rtol 1e-5)."""
+    from repro_torch.core import milo, submodular
+
+    rng = np.random.default_rng(10)
+    feats = rng.normal(size=(2500, 96)).astype(np.float32)
+    grams = []
+    orig = milo.gram_matrix_blocked
+
+    def spy(*args, **kwargs):
+        grams.append(orig(*args, **kwargs))
+        return grams[-1]
+
+    monkeypatch.setattr(milo, "gram_matrix_blocked", spy)
+    pre_k = milo.MiloPreprocessor(use_pallas=True, refine_factor=2, device=cuda_device)
+    pre_p = milo.MiloPreprocessor(use_pallas=False, refine_factor=2, device=cuda_device)
+    before = sim_kernel.launches
+    idx_k = pre_k._refine_indices(feats, 1000, pre_k._set_fn(pre_k.easy_fn))
+    assert sim_kernel.launches == before + 2
+    idx_p = pre_p._refine_indices(feats, 1000, pre_p._set_fn(pre_p.easy_fn))
+    A_k, A_p = grams
+    plain = tsim.gram_matrix_blocked(torch.as_tensor(feats, device=cuda_device), block=2048,
+                                     use_pallas=False)
+    assert torch.equal(A_p, plain)
+    np.testing.assert_allclose(A_k.cpu().numpy(), plain.cpu().numpy(), rtol=1e-4, atol=2e-4)
+    assert len(np.unique(idx_k)) == 1000
+    gc = submodular.make_graph_cut(0.4)
+
+    def value(idx):
+        mask = torch.zeros(len(feats), dtype=torch.bool, device=cuda_device)
+        mask[torch.as_tensor(idx, device=cuda_device)] = True
+        return float(gc.evaluate(mask, A_p))
+
+    np.testing.assert_allclose(value(idx_k), value(idx_p), rtol=1e-5)

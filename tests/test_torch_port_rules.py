@@ -91,7 +91,7 @@ def test_default_device_raises_without_a_card():
 
 
 @pytest.mark.parametrize("knob,value", [
-    ("shard_selection", True), ("firewall", "repair"), ("partition", "random_blocks"), ("refine_factor", 2),
+    ("shard_selection", True), ("firewall", "repair"),
     ("multihost_init", True), ("heartbeat_dir", "hb"),
     ("selector_fallback", ("adaptive_random",)),
 ])
@@ -167,7 +167,7 @@ def test_configs_build_from_each_other():
 
 
 def test_unported_selectors_raise_keyerror():
-    for name in ("milo_hier", "milo_targeted", "craig_pb"):
+    for name in ("el2n", "selfsup_prune", "craig_pb"):
         with pytest.raises(KeyError, match="not ported yet"):
             build_selector(name)
     sel = build_selector("random", n=50, k=5, seed=0)
