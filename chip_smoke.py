@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-16 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-17 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -101,12 +101,36 @@ Phases, in order; any failure ends the run with a non-zero exit:
     artifact checked, reloaded, and refused by a session with another
     ``refine_factor``; B1 at the union's shape and B2, B3 at block 0's and
     the union's against their plain versions.
+17. the encoder step and the paper's baselines on phase 5's data (k = 5,000):
+    (a) ``ProxyEncoder(d_hidden=128, epochs=60)`` fit on the training rows,
+    ``preprocess_with_encoder(encoder_id="proxy", use_pallas=True)`` over its
+    features (B1), the artifact reloaded by a session expecting "proxy" and
+    refused by one expecting "vit", ``milo`` trained on the raw rows; (b)
+    ViT-B/16 at published widths (random weights, fp32) over 5,000
+    class-structured 32×32 images upsampled ×7 to 224 (a cut: not 50,000),
+    its encode time, images/s and TFLOP/s, one batch bit-equal twice, four
+    images against the CPU; (c) the text encoder at all-distilroberta-v1's
+    widths over 2,000 masked sequences of 32–128 tokens, the masked tail
+    unmoved; (d) the Fig. 6 rows ``full``, ``el2n``, ``selfsup_prune``,
+    ``craig_pb``, ``gradmatch_pb`` and ``glister`` through
+    ``MiloSession.train`` (12 epochs, R 10; the bench's last-layer proxy
+    gradients of a probe MLP; EL2N from a probe trained 2 epochs), each
+    row's train and selection time, accuracy, speedup and accuracy loss
+    against ``full`` and peak memory; CRAIG's greedy launches B4 once a step
+    over the (50,000, 50,000) gradient Gram (its route against the plain
+    one on the first 8,192 rows first; R cut to 12 if its first selection
+    passes 20 s), and B4 is timed at that shape beside its bound.
+    Phases 14 and 17 read ``memory_allocated`` (garbage collected, cuBLAS's
+    per-stream workspaces dropped) before each session, after its work and
+    after ``del``: the last must come back within 8 MiB of the first, and
+    the largest tensors still alive are named when it does not.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
 phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
 dense ``fl_gains`` kernel, 12 for flash attention, 13 for the SSD chunk; B1-B3
-also carry their phase 16 launches and errors),
+also carry their phase 16 launches and errors, B4 its phase 17 launches and
+its time, bound and error at CRAIG's shape),
 the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -115,6 +139,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import gc
 import hashlib
 import json
 import math
@@ -1625,6 +1650,7 @@ def phase_fused_training(dev, x, y, tx, ty, md, *, epochs: int, batch_size: int 
     runs = {}
     try:
         for fused in (False, True):
+            before = _allocated_mib(dev)
             session = MiloSession(use_pallas=True, total_epochs=epochs, lr=0.01,
                                   batch_size=batch_size, superstep=superstep,
                                   fused_training=fused, device=dev)
@@ -1639,6 +1665,12 @@ def phase_fused_training(dev, x, y, tx, ty, md, *, epochs: int, batch_size: int 
             runs[fused] = dict(report=report, wall=wall, state=states[-1], peak=peak,
                                captures=engine_mod.captures, replays=engine_mod.replays)
             name = "fused" if fused else "loop"
+            # C1: the session's engine, graphs, static state and resident
+            # buffers die with it; what stays is the fitted state kept above
+            # for the bit comparison (the classifier's parameters and momenta)
+            after = _allocated_mib(dev)
+            del session
+            runs[fused]["memory"] = _released(f"phase 14 {name} session", dev, before, after)
             log(f"{name}: train {wall:.3f} s ({report.train_time:.3f} s timed, {report.steps} steps, "
                 f"{report.steps / report.train_time:.1f} steps/s), accuracy {report.final_acc:.4f}, "
                 f"graph captures {engine_mod.captures} (warm-up included), replays "
@@ -1669,7 +1701,8 @@ def phase_fused_training(dev, x, y, tx, ty, md, *, epochs: int, batch_size: int 
         assert loop["captures"] == loop["replays"] == 0
     return {"loop_s": loop["report"].train_time, "fused_s": fused["report"].train_time,
             "steps": fused["report"].steps, "captures": fused["captures"],
-            "replays": fused["replays"]}
+            "replays": fused["replays"], "memory": {"loop": loop["memory"],
+                                                    "fused": fused["memory"]}}
 
 
 TUNE_SPACE = {"lr": ("log", 3e-3, 0.3), "hidden": ("choice", [32, 64, 128])}
@@ -2249,10 +2282,519 @@ def phase_hierarchical(dev, x, y, tx, ty, *, smi: str, sizes: dict, epochs: int)
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the encoder step (proxy, ViT-B/16, text) and the paper's
+# baselines (Fig. 6) through MiloSession.train; CRAIG's greedy on B4
+# ---------------------------------------------------------------------------
+
+#: phase 17's widths at full size and in the CPU rehearsal
+BASELINE_SIZES = {
+    "full": dict(vit=dict(), n_images=5000, upsample=7, image_batch=256, text=dict(),
+                 n_text=2000, text_len=(32, 128), route_rows=8192, craig_limit_s=20.0),
+    "rehearsal": dict(vit=dict(image_size=32, patch_size=8, d_model=64, num_layers=2, num_heads=4,
+                               d_ff=128),
+                      n_images=200, upsample=1, image_batch=64,
+                      text=dict(vocab_size=1000, max_len=64, d_model=32, num_layers=2,
+                                num_heads=4, d_ff=64),
+                      n_text=200, text_len=(8, 32), route_rows=600, craig_limit_s=20.0),
+}
+
+#: the C1 bound: what a finished session leaves allocated on the card
+RELEASE_MIB = 8.0
+
+
+def _allocated_mib(dev) -> float | None:
+    """``memory_allocated`` once the garbage of earlier work is collected
+    and cuBLAS's per-stream workspaces are dropped: those are library
+    caches that the next product on a stream allocates again (32 MiB a
+    stream on an H100 under torch 2.11), which torch's own leak check
+    (``CudaMemoryLeakCheck``) drops before its readings too.  No live graph's workspace is among
+    them: the engine drops them around every capture, so each graph's lies
+    in its private pool."""
+    if dev.type != "cuda":
+        return None
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated(dev) / 2**20
+
+
+def _holders(obj, skip: set, depth: int = 4) -> str:
+    """The objects that refer to ``obj``, ``depth`` levels up: type names
+    (a dict's first keys), frames and the search's own lists left out."""
+    out, level = [], [obj]
+    frame = type(sys._getframe())
+    for _ in range(depth):
+        skip.add(id(level))
+        refs = [r for o in level for r in gc.get_referrers(o)
+                if id(r) not in skip and not isinstance(r, frame)]
+        if not refs:
+            break
+        out.append(", ".join(f"{type(r).__name__}{list(r)[:4] if isinstance(r, dict) else ''}"
+                             for r in refs[:4]))
+        level = refs[:4]
+    return " <- ".join(out)
+
+
+def _leftovers(top: int = 4) -> list[str]:
+    """The largest tensors still alive on the card, each with its holders."""
+    live = [o for o in gc.get_objects() if isinstance(o, torch.Tensor) and o.is_cuda]
+    live.sort(key=lambda t: t.untyped_storage().nbytes(), reverse=True)
+    return [f"{tuple(t.shape)} {t.dtype} {t.untyped_storage().nbytes() / 2**20:.2f} MiB, held by "
+            f"{_holders(t, {id(live)})}" for t in live[:top]]
+
+
+def _released(label: str, dev, before: float | None, after: float | None) -> dict:
+    """After ``del session``: collect, read ``memory_allocated`` again and
+    hold it to the reading before the session (within ``RELEASE_MIB``);
+    what is left over is named before the check fails."""
+    freed = _allocated_mib(dev)
+    if before is None:
+        log(f"{label}: card memory not measured (cpu)")
+        return {}
+    left = freed - before
+    log(f"{label}: memory_allocated {before:.2f} MiB before the session, {after:.2f} MiB after its "
+        f"work, {freed:.2f} MiB after del + gc.collect() ({left:+.2f} MiB against before)")
+    if abs(left) > RELEASE_MIB:
+        for line in _leftovers():
+            log(f"  left on the card: {line}")
+    assert abs(left) <= RELEASE_MIB, f"{label}: {left:+.2f} MiB still allocated after the session"
+    return {"before_mib": before, "after_mib": after, "released_mib": freed, "left_mib": left}
+
+
+def vit_flops(cfg) -> float:
+    """Multiply-adds ×2 of one image through ``vit_encode``: the patch
+    projection, each layer's qkv, attention (scores and values), output
+    projection and MLP."""
+    s, d, f = cfg.n_patches + 1, cfg.d_model, cfg.d_ff
+    layer = 2 * s * d * 3 * d + 2 * 2 * s * s * d + 2 * s * d * d + 2 * 2 * s * d * f
+    return 2.0 * cfg.n_patches * 3 * cfg.patch_size ** 2 * d + cfg.num_layers * layer
+
+
+def _encoder_artifact(label, md, m: int, encoder_id: str, launches: int, expected: int, dev):
+    _check_artifact(md, m, 8, {"encoder_id": encoder_id})
+    log(f"{label} artifact: k {md.k}, config_hash {md.config_hash()}, similarity launches "
+        f"{launches} (expected sum_c ceil(n_c/2048) = {expected})")
+    if dev.type == "cuda":
+        assert launches == expected, (launches, expected)
+
+
+def _expected_tiles(y: np.ndarray, block: int = 2048) -> int:
+    return int(sum(math.ceil(int(s) / block) for s in np.bincount(y) if s))
+
+
+def phase_proxy_encoder(dev, x, y, tx, ty, *, epochs: int) -> dict:
+    """17a: the proxy encoder fit on the training rows, its 128-wide
+    features preprocessed with B1, the artifact reloaded by a session that
+    expects ``encoder_id="proxy"`` and refused by one that expects "vit",
+    then ``milo`` trained on the raw rows."""
+    from repro_torch.core import preprocess_with_encoder
+    from repro_torch.core.metadata import MetadataMismatchError
+    from repro_torch.encoders import ProxyEncoder
+    from repro_torch.kernels.similarity import similarity as sk
+    from repro_torch.selection import MiloSession
+
+    log("== phase 17a: proxy encoder (d_hidden 128, 60 full-batch steps) -> preprocess_with_encoder")
+    _sync(dev)
+    t0 = time.perf_counter()
+    enc = ProxyEncoder(d_in=x.shape[1], n_classes=int(y.max()) + 1, d_hidden=128, epochs=60,
+                       device=dev).fit(x, y)
+    _sync(dev)
+    t_fit = time.perf_counter() - t0
+    probe = enc.linear_probe_accuracy(x, y), enc.linear_probe_accuracy(tx, ty)
+    enc_time = {"encode": 0.0}
+    _reset_launches()
+    held = _reset_peak(dev)
+    t0 = time.perf_counter()
+    md = preprocess_with_encoder(_timed(enc.encode, enc_time, "encode", dev), x, y, 0,
+                                 encoder_id="proxy", use_pallas=True, device=dev)
+    t_pre = time.perf_counter() - t0
+    peak = _peak_mib(dev, held)
+    log(f"fit {t_fit:.3f} s; linear-probe accuracy train {probe[0]:.4f}, test {probe[1]:.4f}; "
+        f"preprocess_with_encoder {t_pre:.3f} s (encode {enc_time['encode']:.3f} s in "
+        f"{-(-len(x) // 256)} batches of 256); {_peak_text(peak, held)}")
+    _encoder_artifact("proxy", md, len(x), "proxy", sk.launches, _expected_tiles(y), dev)
+    feats = enc.encode(x)
+    assert feats.shape == (len(x), 128) and np.isfinite(feats).all()
+
+    before = _allocated_mib(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "proxy.npz")
+        md.save(path)
+        session = MiloSession(use_pallas=True, total_epochs=epochs, lr=0.01, metadata_path=path,
+                              device=dev)
+        back = session.preprocess(feats, y, encoder_id="proxy")
+        assert session.loaded_from_artifact and back.config_hash() == md.config_hash()
+        other = MiloSession(use_pallas=True, metadata_path=path, device=dev)
+        try:
+            other.preprocess(feats, y, encoder_id="vit")
+        except MetadataMismatchError as e:
+            log(f"artifact reloads (config_hash {md.config_hash()}); a session expecting "
+                f"encoder_id 'vit' refuses it: {str(e).split(': ', 1)[1]}")
+        else:
+            raise AssertionError("a session expecting encoder_id 'vit' took the proxy artifact")
+        t0 = time.perf_counter()
+        report = session.train(x, y, test_x=tx, test_y=ty)
+        t_train = time.perf_counter() - t0
+    after = _allocated_mib(dev)
+    log(f"milo on the raw rows with the proxy artifact: train {t_train:.3f} s "
+        f"({report.train_time:.3f} s timed, {report.steps} steps), accuracy {report.final_acc:.4f}")
+    assert report.final_acc >= 0.5, f"test accuracy {report.final_acc} is near chance"
+    del session, other, back
+    memory = _released("17a session", dev, before, after)
+    return {"fit_s": t_fit, "probe_acc": probe, "preprocess_s": t_pre, "encode_s": enc_time["encode"],
+            "peak_mib": peak, "train_s": t_train, "accuracy": report.final_acc, "memory": memory}
+
+
+def phase_vit_encoder(dev, *, sizes: dict) -> dict:
+    """17b: ViT-B/16 at published widths (random weights from seed 0, fp32,
+    TF32 off) over class-structured 32×32 images upsampled (nearest) inside
+    ``encode_fn``; the features preprocessed with B1."""
+    from repro_torch.core import preprocess_with_encoder
+    from repro_torch.encoders import ViTConfig, init_vit, vit_encode
+    from repro_torch.kernels.similarity import similarity as sk
+
+    cfg = ViTConfig(**sizes["vit"])
+    n, up, batch = sizes["n_images"], sizes["upsample"], sizes["image_batch"]
+    log(f"== phase 17b: ViT encoder {cfg} over {n} images of 32x32x3 upsampled x{up} "
+        f"(nearest), batches of {batch}")
+    params = init_vit(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(0)
+    labels = np.repeat(np.arange(10), n // 10)
+    templates = rng.normal(size=(10, 32, 32, 3)).astype(np.float32)
+    images = templates[labels] + 0.5 * rng.normal(size=(n, 32, 32, 3)).astype(np.float32)
+
+    def upsample(batch_np, device):
+        t = torch.as_tensor(batch_np, device=device)
+        return t.repeat_interleave(up, dim=1).repeat_interleave(up, dim=2)
+
+    def encode(batch_np):
+        return vit_encode(params, upsample(batch_np, dev), cfg)
+
+    enc_time = {"encode": 0.0}
+    _reset_launches()
+    t0 = time.perf_counter()
+    md = preprocess_with_encoder(_timed(encode, enc_time, "encode", dev), images, labels, 0,
+                                 batch_size=batch, encoder_id="vit", use_pallas=True, device=dev)
+    t_pre = time.perf_counter() - t0
+    flops = vit_flops(cfg) * n
+    rate = flops / enc_time["encode"] / 1e12
+    log(f"encode {enc_time['encode']:.3f} s ({-(-n // batch)} batches): {n / enc_time['encode']:.1f} "
+        f"images/s, {vit_flops(cfg) / 1e9:.2f} GFLOP an image, {rate:.2f} TFLOP/s "
+        f"({100 * rate * 1e12 / PEAK_FP32_FLOPS:.1f}% of the fp32 peak); "
+        f"preprocess_with_encoder {t_pre:.3f} s in all")
+    _encoder_artifact("vit", md, n, "vit", sk.launches, _expected_tiles(labels), dev)
+    one = images[:batch]
+    z1, z2 = encode(one), encode(one)
+    assert torch.equal(z1, z2), "one batch encoded twice differs"
+    assert z1.shape == (len(one), cfg.d_model) and torch.isfinite(z1).all()
+    cpu = torch.device("cpu")
+    params_cpu = {k: ([{kk: vv.to(cpu) for kk, vv in lp.items()} for lp in v] if k == "layers"
+                      else v.to(cpu)) for k, v in params.items()}
+    z_cpu = vit_encode(params_cpu, upsample(images[:4], cpu), cfg)
+    err = float((z1[:4].cpu() - z_cpu).abs().max())
+    log(f"one batch encoded twice: bit-equal; 4 images on {dev.type} against the CPU: max abs "
+        f"diff {err:.3e}")
+    np.testing.assert_allclose(z1[:4].cpu().numpy(), z_cpu.numpy(), **TOL[torch.float32])
+    return {"encode_s": enc_time["encode"], "images_per_s": n / enc_time["encode"], "tflops": rate,
+            "fp32_peak_share": rate * 1e12 / PEAK_FP32_FLOPS, "preprocess_s": t_pre,
+            "cpu_max_abs_diff": err}
+
+
+def phase_text_encoder(dev, *, sizes: dict) -> dict:
+    """17c: the SBERT-style text encoder at all-distilroberta-v1's widths
+    (random weights) over padded, masked sequences; the masked-tail check
+    of ``tests/test_encoders.py`` on the card."""
+    from repro_torch.core import preprocess_with_encoder
+    from repro_torch.encoders import TextEncoderConfig, init_text_encoder, text_encode
+    from repro_torch.kernels.similarity import similarity as sk
+
+    cfg = TextEncoderConfig(**sizes["text"])
+    n, (lo, hi) = sizes["n_text"], sizes["text_len"]
+    log(f"== phase 17c: text encoder {cfg} over {n} sequences of {lo}-{hi} tokens")
+    params = init_text_encoder(cfg, seed=0, device=dev)
+    rng = np.random.default_rng(1)
+    labels = np.repeat(np.arange(10), n // 10)
+    band = cfg.vocab_size // 10          # each class draws from its own band of ids
+    lengths = rng.integers(lo, hi + 1, n)
+    mask = np.arange(hi)[None] < lengths[:, None]
+    toks = np.where(mask, labels[:, None] * band + rng.integers(0, band, (n, hi)), 1)
+    inputs = np.stack([toks, mask.astype(np.int64)], axis=1)
+
+    def encode(batch_np):
+        t = torch.as_tensor(batch_np, device=dev)
+        return text_encode(params, t[:, 0], cfg, t[:, 1].float())
+
+    enc_time = {"encode": 0.0}
+    _reset_launches()
+    t0 = time.perf_counter()
+    md = preprocess_with_encoder(_timed(encode, enc_time, "encode", dev), inputs, labels, 0,
+                                 encoder_id="text", use_pallas=True, device=dev)
+    t_pre = time.perf_counter() - t0
+    log(f"encode {enc_time['encode']:.3f} s ({-(-n // 256)} batches): {n / enc_time['encode']:.1f} "
+        f"sequences/s; preprocess_with_encoder {t_pre:.3f} s in all")
+    _encoder_artifact("text", md, n, "text", sk.launches, _expected_tiles(labels), dev)
+    # tests/test_encoders.py's property: a masked-out tail does not move the embedding
+    short = int(np.argmin(lengths))
+    pair = inputs[[short, short]].copy()
+    pair[1, 0, lengths[short]:] = 0
+    z = encode(pair)
+    diff = float((z[0] - z[1]).abs().max())
+    log(f"masked tail ({hi - lengths[short]} tokens of sequence {short} changed): max abs diff "
+        f"{diff:.3e}")
+    assert diff <= 1e-5, diff
+    return {"encode_s": enc_time["encode"], "sequences_per_s": n / enc_time["encode"],
+            "preprocess_s": t_pre, "masked_tail_diff": diff}
+
+
+def _probe_grads(dev, x, y, tx, ty):
+    """The bench's last-layer proxy (``benchmarks/bench_training.py``): the
+    probe MLP's ``softmax(logits) − onehot`` over the training rows, and its
+    mean over the validation rows, on the device; and EL2N scores from a
+    probe trained 2 epochs on the full set."""
+    import importlib
+
+    from repro_torch.models.classifier import init_mlp, mlp_logits
+
+    sm = importlib.import_module("repro_torch.selection.session")
+    n_classes = int(y.max()) + 1
+    X, Y = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    VX, VY = torch.as_tensor(tx, device=dev), torch.as_tensor(ty, device=dev)
+    probe = init_mlp(torch.Generator().manual_seed(9), x.shape[1], n_classes, device=dev)
+
+    @torch.no_grad()
+    def residual(params, a, b):
+        p = torch.softmax(mlp_logits(params, a), dim=-1)
+        return p - torch.nn.functional.one_hot(b, n_classes).to(p.dtype)
+
+    def grad_fn():
+        return residual(probe, X, Y)
+
+    def val_grad_fn():
+        return residual(probe, VX, VY).mean(0)
+
+    state = sm._init_classifier(9, x.shape[1], n_classes, 64, 0.01, 2, dev)
+    step = sm._classifier_step_fn(4)
+    for _ in range(2):                       # 2 epochs, one full-set batch each
+        state, _ = step(state, {"x": X, "y": Y})
+    scores = residual(state.params, X, Y).norm(dim=1).cpu().numpy()
+    return grad_fn, val_grad_fn, scores
+
+
+def phase_craig_routes(dev, g: torch.Tensor, *, rows: int) -> dict:
+    """CRAIG on the first ``rows`` rows on the kernel route (B4) and the
+    plain route: index-equal up to a near-tie parting; weights equal when
+    the indices are."""
+    from repro_torch.baselines import selectors as base_mod
+    from repro_torch.core.similarity import gram_matrix
+    from repro_torch.core.submodular import facility_location
+
+    g = g[:rows]
+    k = max(1, round(0.1 * rows))
+    out = {}
+    kernel_fn = base_mod.make_facility_location_pallas
+    try:
+        for name, make_fn in (("kernel", kernel_fn), ("plain", lambda: facility_location)):
+            base_mod.make_facility_location_pallas = make_fn
+            _sync(dev)
+            t0 = time.perf_counter()
+            out[name] = base_mod.craig_pb_select(g, k)
+            out[name + "_s"] = time.perf_counter() - t0
+    finally:
+        base_mod.make_facility_location_pallas = kernel_fn
+    (ik, wk), (ip, wp) = out["kernel"], out["plain"]
+    log(f"CRAIG routes on the first {rows} rows (k {k}): kernel {out['kernel_s']:.3f} s, plain "
+        f"{out['plain_s']:.3f} s")
+    parted = np.nonzero(ik != ip)[0]
+    if len(parted):
+        t = int(parted[0])
+        K = gram_matrix(g).double()
+        cover = K[:, torch.as_tensor(ip[:t], device=dev)].max(dim=1).values if t else \
+            torch.zeros(rows, dtype=torch.float64, device=dev)
+        ga, gb = (float(torch.relu(K[:, int(j)] - cover).sum()) for j in (ip[t], ik[t]))
+        gap = abs(ga - gb) / max(ga, gb)
+        log(f"indices part at step {t} of {k}: plain picks {int(ip[t])} (float64 gain {ga!r}), "
+            f"kernel {int(ik[t])} ({gb!r}): relative gap {gap:.2e}; weights not compared")
+        # B4 sums 256-row chunks in fp32, then the chunks: its rounding
+        # budget is (256 + rows / 256) · 2^-24 of the gain
+        assert gap <= (256 + rows / 256) * 2.0**-24, f"the routes part at step {t} by {gap:.2e}"
+        del K
+    else:
+        assert np.array_equal(wk, wp), "equal medoids with other cluster masses"
+        log("indices equal; weights equal")
+    return {"rows": rows, "k": k, "parted_at": int(parted[0]) if len(parted) else None,
+            "kernel_s": out["kernel_s"], "plain_s": out["plain_s"]}
+
+
+def phase_b4_at_craig(dev, g: torch.Tensor, idx: np.ndarray, smi: str) -> dict:
+    """B4 at CRAIG's shape, (n, n) with n the training rows, under the cover
+    of the first 100 medoids: time, plain time, bound, error."""
+    from repro_torch.core.similarity import gram_matrix
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.fl_gains.ref import fl_gains_ref
+
+    K = gram_matrix(g)
+    n = K.shape[0]
+    c = K[:, torch.as_tensor(idx[:100], device=dev)].max(dim=1).values
+    bound, by = fl_bound_ms("fl_gains", n, n)
+    out = fk.fl_gains_cuda(K, c)
+    ref = fl_gains_ref(K, c)
+    err = _check(f"fl_gains at CRAIG's ({n}, {n})", out, ref, fl_tol(n))
+    del out, ref
+    ms = cuda_ms(lambda: fk.fl_gains_cuda(K, c))
+    plain = cuda_ms(lambda: fl_gains_ref(K, c), iters=2, warmup=1)
+    log(f"fl_gains at ({n}, {n}) on {smi}: {ms:.4f} ms against its {bound:.4f} ms bound "
+        f"({by}; {100 * bound / ms:.1f}%), plain {plain:.4f} ms; max abs err {err:.3e}")
+    return {"shape": f"({n}, {n})", "ms": ms, "plain_ms": plain, "bound_ms": bound,
+            "bound_by": by, "max_abs_err": err}
+
+
+FIG6 = ("full", "el2n", "selfsup_prune", "craig_pb", "gradmatch_pb", "glister")
+MODEL_DEPENDENT = ("craig_pb", "gradmatch_pb", "glister")
+
+
+def phase_selfsup_routes(dev, x: np.ndarray, *, rows: int) -> dict:
+    """Self-supervised pruning of the first ``rows`` rows on the card and on
+    the CPU: the same kept rows, or sets that differ only in rows whose
+    distance lies within rtol 1e-5 of the k-th (a near-tie), as the CPU
+    tests hold the port against the reference."""
+    from repro_torch.baselines.selectors import SelfSupPruneSelector, prototype_distances
+
+    z = x[:rows]
+    k = max(1, round(0.1 * rows))
+    kept = {d: SelfSupPruneSelector(z, k, device=d).indices_for_epoch(0) for d in (dev, "cpu")}
+    differ = np.setxor1d(kept[dev], kept["cpu"])
+    if len(differ):
+        zt = torch.as_tensor(z)
+        first = np.random.default_rng(0).choice(len(z), 10, replace=False)
+        dist = prototype_distances(zt, zt[torch.as_tensor(first)]).numpy()
+        kth = np.sort(dist)[-k]
+        np.testing.assert_allclose(dist[differ], kth, rtol=1e-5)
+    log(f"selfsup_prune on the first {rows} rows (k {k}): {dev.type} and cpu keep "
+        f"{'the same rows' if not len(differ) else f'sets differing in {len(differ)} near-tie rows'}")
+    return {"rows": rows, "k": k, "differ": int(len(differ))}
+
+
+def phase_fig6(dev, x, y, tx, ty, *, epochs: int, R: int, sizes: dict, smi: str) -> dict:
+    """17d: the Fig. 6 rows, each through ``MiloSession.train(selector=...)``
+    in a session of its own, released after its row.  Each baseline's
+    selector is built first (the model-dependent ones take their first
+    selection, which ``train`` would take as its warm-up), timed."""
+    from repro_torch.baselines import selectors as base_mod
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.models.classifier import accuracy
+    from repro_torch.selection import MiloSession
+
+    log(f"== phase 17d: the Fig. 6 rows ({', '.join(FIG6)}), {epochs} epochs, R {R}")
+    grad_fn, val_grad_fn, scores = _probe_grads(dev, x, y, tx, ty)
+    routes = phase_craig_routes(dev, grad_fn(), rows=min(sizes["route_rows"], len(x)))
+    selfsup = phase_selfsup_routes(dev, x, rows=min(sizes["route_rows"], len(x)))
+    kws = {"el2n": dict(scores=scores), "selfsup_prune": dict(n_prototypes=10),
+           "craig_pb": dict(grad_fn=grad_fn, R=R), "gradmatch_pb": dict(grad_fn=grad_fn, R=R),
+           "glister": dict(grad_fn=grad_fn, val_grad_fn=val_grad_fn, R=R)}
+    rows = {}
+    states, restore = _fits()
+    try:
+        for name in FIG6:
+            before = _allocated_mib(dev)
+            held = _reset_peak(dev)
+            _reset_launches()
+            session = MiloSession(use_pallas=True, total_epochs=epochs, lr=0.01, device=dev)
+            row = {}
+            with _stage_times(base_mod, {"greedy": "greedy"}, dev) as times:
+                selector = name
+                if name != "full":
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    selector = session.selector(name, n=len(x), features=x, **kws[name])
+                    plan0 = selector.plan(0)
+                    row["first_selection_s"] = time.perf_counter() - t0
+                    row["classes"] = np.bincount(y[plan0.indices], minlength=int(y.max()) + 1)
+                if name == "craig_pb" and row["first_selection_s"] > sizes["craig_limit_s"]:
+                    selector.R = epochs      # one window: this selection and one timed
+                    log(f"craig_pb: the first selection took {row['first_selection_s']:.3f} s "
+                        f"(> {sizes['craig_limit_s']:.0f} s): cut to R = {epochs}")
+                t0 = time.perf_counter()
+                report = session.train(x, y, test_x=tx, test_y=ty, selector=selector)
+                row["wall_s"] = time.perf_counter() - t0
+            row.update(train_s=report.train_time, accuracy=report.final_acc,
+                       peak_mib=_peak_mib(dev, held), held_mib=held)
+            if name in MODEL_DEPENDENT:
+                row["selection_s"] = selector.selection_time
+                row["R"] = selector.R
+                row["selections"] = 1 + -(-epochs // selector.R)
+            if name == "craig_pb":
+                k = selector.cfg.k
+                row["b4_launches"] = fk.launches["fl_gains"]
+                row["greedy_s"] = times.get("greedy", 0.0)
+                row["ms_per_step"] = 1e3 * row["greedy_s"] / (k * row["selections"])
+                craig_idx = selector._idx
+                if dev.type == "cuda":
+                    assert row["b4_launches"] == k * row["selections"], (row["b4_launches"], k)
+            if name == "selfsup_prune":
+                # the rows farthest from 10 k-means prototypes fall in a few
+                # classes of this mixture (the reference keeps the same rows,
+                # tests/test_torch_baselines.py): the model is held to the
+                # test rows of the classes its subset holds
+                held_classes = np.nonzero(row["classes"])[0]
+                on = np.isin(ty, held_classes)
+                row["accuracy_on_held_classes"] = float(accuracy(
+                    states[-1].params, torch.as_tensor(tx[on], device=dev),
+                    torch.as_tensor(ty[on], device=dev)))
+            after = _allocated_mib(dev)
+            del session, selector
+            states.clear()
+            row["memory"] = _released(f"17d {name} session", dev, before, after)
+            rows[name] = row
+            gate = row.get("accuracy_on_held_classes", row["accuracy"])
+            assert gate >= 0.5, f"{name}: test accuracy {gate} is near chance"
+    finally:
+        restore()
+    full = rows["full"]
+    for name, row in rows.items():
+        row["speedup"] = full["train_s"] / row["train_s"]
+        row["accuracy_loss"] = full["accuracy"] - row["accuracy"]
+        extra = ""
+        if "classes" in row:
+            extra = (f", subset classes {row['classes'].tolist()}, first selection "
+                     f"{row['first_selection_s']:.3f} s")
+            row["classes"] = row["classes"].tolist()
+        if "accuracy_on_held_classes" in row:
+            extra += f", accuracy on its classes' test rows {row['accuracy_on_held_classes']:.4f}"
+        if name in MODEL_DEPENDENT:
+            extra += (f", selection {row['selection_s']:.3f} s over {row['selections']} "
+                      f"selections at R {row['R']}")
+        if name == "craig_pb":
+            extra += (f"; B4 {row['b4_launches']} launches, greedy {row['greedy_s']:.3f} s, "
+                      f"{row['ms_per_step']:.3f} ms a step")
+        log(f"{name}: train {row['train_s']:.3f} s timed, accuracy {row['accuracy']:.4f}, speedup "
+            f"{row['speedup']:.2f}x, accuracy loss {row['accuracy_loss']:+.4f} against full"
+            f"{extra}; {_peak_text(row['peak_mib'], row['held_mib'])}")
+    b4 = None
+    if dev.type == "cuda":
+        b4 = phase_b4_at_craig(dev, grad_fn(), craig_idx, smi)
+        b4["launches"] = rows["craig_pb"]["b4_launches"]
+    return {"routes": routes, "selfsup_routes": selfsup, "rows": rows, "b4": b4}
+
+
+def phase_baselines(dev, x, y, tx, ty, *, smi: str, sizes: dict, epochs: int) -> dict:
+    """Phase 17: the encoder step and the paper's baselines on phase 5's data."""
+    log(f"== phase 17: the encoder step and the paper's baselines on {smi}")
+    t0 = time.perf_counter()
+    proxy = phase_proxy_encoder(dev, x, y, tx, ty, epochs=epochs)
+    vit = phase_vit_encoder(dev, sizes=sizes)
+    text = phase_text_encoder(dev, sizes=sizes)
+    fig6 = phase_fig6(dev, x, y, tx, ty, epochs=epochs, R=10, sizes=sizes, smi=smi)
+    summary = {"card": smi, "17a": proxy, "17b": vit, "17c": text, "17d": fig6,
+               "total_s": time.perf_counter() - t0}
+    log("phase 17 summary: " + json.dumps(summary, default=float))
+    return summary
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-16 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-17 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -2278,6 +2820,8 @@ def main() -> int:
         phase_tuning(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"], md)
         phase_hierarchical(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
                            smi="cpu (rehearsal)", sizes=HIER_SIZES["rehearsal"], epochs=12)
+        phase_baselines(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
+                        smi="cpu (rehearsal)", sizes=BASELINE_SIZES["rehearsal"], epochs=12)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -2307,6 +2851,8 @@ def main() -> int:
     phase_tuning(dev, *train_data.values(), md)
     hier = phase_hierarchical(dev, *train_data.values(), smi=dev_info["smi"],
                               sizes=HIER_SIZES["full"], epochs=12)
+    base = phase_baselines(dev, *train_data.values(), smi=dev_info["smi"],
+                           sizes=BASELINE_SIZES["full"], epochs=12)
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
         ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",
@@ -2407,6 +2953,9 @@ def main() -> int:
         kern["phase16"] = {"launches": {sub: hier[sub]["launches"][kern["name"]]
                                         for sub in ("16b", "16c")},
                            "max_abs_err": hier["16c"]["max_abs_err"][kern["name"]]}
+    # phase 17: B4 on CRAIG's path (one launch a greedy step), at its shape
+    b4 = next(k for k in kernels if k["name"] == "fl_gains")
+    b4["phase17"] = base["17d"]["b4"]
     spills = [v for k in (sim["ptxas"], delta["instances"]["small_b"]["ptxas"]) for v in k.values()]
     spills.append(b2["instances"]["ring"]["ptxas"])
     log(f"similarity: {sim['ptxas']}, dynamic shared memory {sim['dynamic_smem_bytes']} bytes")

@@ -1,5 +1,17 @@
-"""repro_torch.baselines — the model-independent baseline strategies ported
-so far (``MiloFixedSelector``); the others wait for ROADMAP A9."""
-from repro_torch.baselines.selectors import MiloFixedSelector
+"""repro_torch.baselines — the paper's baseline strategies (port of
+``repro.baselines``), the legacy ``indices_for_epoch`` classes."""
+from repro_torch.baselines.selectors import (
+    AdaptiveRandomSelector,
+    CraigPBSelector,
+    EL2NSelector,
+    GlisterSelector,
+    GradMatchPBSelector,
+    MiloFixedSelector,
+    RandomSelector,
+    SelfSupPruneSelector,
+)
 
-__all__ = ["MiloFixedSelector"]
+__all__ = [
+    "AdaptiveRandomSelector", "CraigPBSelector", "EL2NSelector", "GlisterSelector",
+    "GradMatchPBSelector", "MiloFixedSelector", "RandomSelector", "SelfSupPruneSelector",
+]

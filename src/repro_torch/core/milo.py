@@ -68,7 +68,7 @@ from repro_torch.device import resolve_device
 #: field -> (the only value the port accepts, ROADMAP item that ports the rest)
 UNPORTED_PREPROCESS = {
     "shard_selection": (False, "A11 (multi-device selection)"),
-    "firewall": (None, "A9 (health firewall)"),
+    "firewall": (None, "A9b (health firewall)"),
 }
 
 
@@ -646,3 +646,28 @@ def targeted_select(
         lazy_threshold=None, device=dev,
     )
     return (selected, info) if return_info else selected
+
+
+def preprocess_with_encoder(
+    encode_fn: Callable[[Any], Any],
+    inputs: Any,
+    labels: np.ndarray | None,
+    seed: int = 0,
+    *,
+    batch_size: int = 256,
+    encoder_id: str = "custom",
+    sge_noise: Sequence[Any] | None = None,
+    **pre_kwargs,
+) -> MiloMetadata:
+    """Encode ``inputs`` in batches of ``batch_size`` with a frozen encoder,
+    then preprocess the features with ``MiloPreprocessor(**pre_kwargs)``
+    (``device=`` among them).  ``encode_fn`` may return a tensor or an
+    array; ``seed`` and ``sge_noise`` are ``preprocess``'s."""
+    feats = []
+    for lo in range(0, len(inputs), batch_size):
+        out = encode_fn(inputs[lo:lo + batch_size])
+        feats.append(out.detach().cpu().numpy() if isinstance(out, torch.Tensor)
+                     else np.asarray(out))
+    features = np.concatenate(feats, axis=0)
+    pre = MiloPreprocessor(**pre_kwargs)
+    return pre.preprocess(features, labels, seed, encoder_id=encoder_id, sge_noise=sge_noise)

@@ -19,6 +19,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with f32 statistics (``var = mean((x − mu)²)``) and the
+    result in ``x``'s dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean((x32 - mu) ** 2, dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.bfloat16,
                device=None) -> torch.Tensor:
     """Normal weights scaled by ``sqrt(2 / (d_in + d_out))``, drawn in f32

@@ -1,8 +1,8 @@
 """repro_torch.selection — the front door for subset selection on PyTorch.
 
 * ``SelectionPlan`` / ``Selector`` — the weighted per-epoch protocol.
-* ``build_selector(name, **cfg)`` — registry factory (milo, milo_fixed,
-  milo_hier, milo_targeted, full, random, adaptive_random so far).
+* ``build_selector(name, **cfg)`` — registry factory over the reference's
+  twelve strategies (MILO's four and the paper's baselines).
 * ``MiloSession`` — one-call facade: ``preprocess()`` / ``train()`` /
   ``tune()``.
 """
@@ -16,19 +16,25 @@ from repro_torch.selection.registry import (
 )
 from repro_torch.selection.selectors import (
     AdaptiveRandomConfig,
+    CraigPBConfig,
+    EL2NConfig,
     FullConfig,
+    GlisterConfig,
+    GradMatchPBConfig,
     MiloConfig,
     MiloFixedConfig,
     MiloHierConfig,
     MiloTargetedConfig,
     RandomConfig,
+    SelfSupPruneConfig,
 )
 from repro_torch.selection.session import MiloSession, MiloSessionConfig, TrainReport
 
 __all__ = [
     "PHASES", "SelectionPlan", "Selector", "uniform_plan", "available_selectors",
     "build_selector", "register", "selector_entry", "AdaptiveRandomConfig",
-    "FullConfig", "MiloConfig", "MiloFixedConfig", "MiloHierConfig", "MiloTargetedConfig",
-    "RandomConfig", "MiloSession", "MiloSessionConfig",
+    "CraigPBConfig", "EL2NConfig", "FullConfig", "GlisterConfig", "GradMatchPBConfig",
+    "MiloConfig", "MiloFixedConfig", "MiloHierConfig", "MiloTargetedConfig",
+    "RandomConfig", "SelfSupPruneConfig", "MiloSession", "MiloSessionConfig",
     "TrainReport",
 ]

@@ -51,16 +51,7 @@ def register(name: str, config_cls: type, *, paper: str = "", doc: str = ""):
     return deco
 
 
-#: registry names of the reference whose strategies are not ported yet
-NOT_PORTED = {
-    "el2n": "A9", "selfsup_prune": "A9", "craig_pb": "A9", "gradmatch_pb": "A9",
-    "glister": "A9",
-}
-
-
 def selector_entry(name: str) -> SelectorEntry:
-    if name in NOT_PORTED:
-        raise KeyError(f"selector {name!r} not ported yet, see ROADMAP {NOT_PORTED[name]}")
     try:
         return _REGISTRY[name]
     except KeyError:

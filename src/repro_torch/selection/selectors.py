@@ -1,13 +1,33 @@
-"""The ported selection strategies: ``milo``, ``milo_fixed``, ``milo_hier``,
-``milo_targeted``, ``full``, ``random`` and ``adaptive_random`` (port of
-``repro.selection.selectors``).
+"""The twelve registered selection strategies (MILO + the paper's §4
+baselines), port of ``repro.selection.selectors``:
 
-The other names of the reference's registry raise ``KeyError`` through
-``registry.selector_entry`` until their slice lands (see ROADMAP).
+  ============== ============================== =========================
+  registry name  paper strategy                 plan weights
+  ============== ============================== =========================
+  milo           MILO (SGE→WRE curriculum)      uniform
+  milo_fixed     MILO (Fixed)                   uniform
+  milo_hier      MILO (hierarchical refine)     uniform
+  milo_targeted  query FL (SMI-style targeted)  uniform
+  random         RANDOM                         uniform
+  adaptive_random ADAPTIVE-RANDOM               uniform
+  el2n           EL2N [Paul'21]                 uniform
+  selfsup_prune  prototypes [Sorscher'22]       uniform
+  craig_pb       CRAIG-PB [Mirzasoleiman'20]    cluster masses (γ)
+  gradmatch_pb   GRAD-MATCH-PB [Killamsetty'21] OMP coefficients
+  glister        GLISTER [Killamsetty'21]       uniform
+  full           FULL (no selection)            uniform
+  ============== ============================== =========================
+
+Selection logic is reused from ``repro_torch.core.milo`` and
+``repro_torch.baselines.selectors``; this module adds the weighted-plan
+surface, phase tags, provenance and uniform construction.  Strategies that
+compute on a device take ``device`` (the card unless the caller asks for
+the CPU); ``MiloSession.selector`` passes the session's.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable
 
 import numpy as np
@@ -251,3 +271,171 @@ class AdaptiveRandomPlanSelector(Selector):
         idx = rng.choice(self.cfg.n, size=self.cfg.k, replace=False)
         return uniform_plan(idx, "adaptive", epoch, selector="adaptive_random",
                             seed=self.cfg.seed, window=window)
+
+
+@dataclasses.dataclass
+class EL2NConfig:
+    scores: np.ndarray
+    k: int
+    keep: str = "hard"
+
+
+@register("el2n", EL2NConfig, paper="EL2N [Paul'21]",
+          doc="keep hardest/easiest k by EL2N score")
+class EL2NPlanSelector(Selector):
+    """Data-diet pruning by precomputed EL2N scores."""
+
+    def __init__(self, cfg: EL2NConfig):
+        self.cfg = cfg
+        self._inner = legacy.EL2NSelector(cfg.scores, cfg.k, keep=cfg.keep)
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(
+            self._inner.indices_for_epoch(epoch), "fixed", epoch,
+            selector="el2n", keep=self.cfg.keep,
+        )
+
+
+@dataclasses.dataclass
+class SelfSupPruneConfig:
+    features: np.ndarray
+    k: int
+    n_prototypes: int = 10
+    seed: int = 0
+    device: str | torch.device = "cuda"
+
+
+@register("selfsup_prune", SelfSupPruneConfig, paper="prototypes [Sorscher'22]",
+          doc="k-means prototype-distance pruning")
+class SelfSupPrunePlanSelector(Selector):
+    """Self-supervised prototype-distance pruning (keep farthest k)."""
+
+    def __init__(self, cfg: SelfSupPruneConfig):
+        self.cfg = cfg
+        self._inner = legacy.SelfSupPruneSelector(
+            cfg.features, cfg.k, n_prototypes=cfg.n_prototypes, seed=cfg.seed,
+            device=cfg.device,
+        )
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        return uniform_plan(
+            self._inner.indices_for_epoch(epoch), "fixed", epoch,
+            selector="selfsup_prune", seed=self.cfg.seed,
+        )
+
+
+# --------------------------------------------------------------------------
+# model-dependent baselines (selection cost on the training critical path)
+# --------------------------------------------------------------------------
+
+class _WindowedSelector(Selector):
+    """Base for R-windowed model-dependent strategies: recompute the
+    (indices, weights) pair once per R-epoch window, tag plans ``adaptive``,
+    and accumulate ``selection_time`` — the cost MILO amortizes away.  The
+    selection functions return host indices, so the clock stops after the
+    device's work."""
+
+    name = ""
+
+    def __init__(self, R: int):
+        self.R = R
+        self.selection_time = 0.0
+        self._window: int | None = None
+        self._idx: np.ndarray | None = None
+        self._weights: np.ndarray | None = None
+
+    def _select(self) -> tuple[np.ndarray, np.ndarray]:
+        raise NotImplementedError
+
+    def plan(self, epoch: int) -> SelectionPlan:
+        window = epoch // self.R
+        if window != self._window or self._idx is None:
+            t0 = time.perf_counter()
+            self._idx, self._weights = self._select()
+            self.selection_time += time.perf_counter() - t0
+            self._window = window
+        return SelectionPlan(
+            self._idx, self._weights, "adaptive", epoch,
+            {"selector": self.name, "window": window,
+             "selection_time": self.selection_time},
+        )
+
+    def reset_cache(self) -> None:
+        self._window = None
+
+
+@dataclasses.dataclass
+class CraigPBConfig:
+    grad_fn: Callable[[], Any]
+    k: int
+    R: int = 10
+    device: str | torch.device = "cuda"
+
+
+@register("craig_pb", CraigPBConfig, paper="CRAIG-PB [Mirzasoleiman'20]",
+          doc="facility-location medoids of gradient similarity; γ weights")
+class CraigPBPlanSelector(_WindowedSelector):
+    """Per-batch CRAIG with cluster-mass loss weights."""
+
+    name = "craig_pb"
+
+    def __init__(self, cfg: CraigPBConfig):
+        super().__init__(cfg.R)
+        self.cfg = cfg
+
+    def _select(self):
+        return legacy.craig_pb_select(self.cfg.grad_fn(), self.cfg.k, device=self.cfg.device)
+
+
+@dataclasses.dataclass
+class GradMatchPBConfig:
+    grad_fn: Callable[[], Any]
+    k: int
+    R: int = 10
+    lam: float = 0.5
+    device: str | torch.device = "cuda"
+
+
+@register("gradmatch_pb", GradMatchPBConfig, paper="GRAD-MATCH-PB [Killamsetty'21]",
+          doc="OMP matching of the mean gradient; OMP-coefficient weights")
+class GradMatchPBPlanSelector(_WindowedSelector):
+    """Per-batch GRAD-MATCH with OMP-coefficient loss weights."""
+
+    name = "gradmatch_pb"
+
+    def __init__(self, cfg: GradMatchPBConfig):
+        super().__init__(cfg.R)
+        self.cfg = cfg
+
+    def _select(self):
+        return legacy.gradmatch_omp_select(self.cfg.grad_fn(), self.cfg.k, self.cfg.lam,
+                                           device=self.cfg.device)
+
+
+@dataclasses.dataclass
+class GlisterConfig:
+    grad_fn: Callable[[], Any]
+    val_grad_fn: Callable[[], Any]
+    k: int
+    R: int = 10
+    eta: float = 0.1
+    device: str | torch.device = "cuda"
+
+
+@register("glister", GlisterConfig, paper="GLISTER [Killamsetty'21]",
+          doc="greedy validation-gain selection")
+class GlisterPlanSelector(_WindowedSelector):
+    """GLISTER's greedy validation-gain selection (uniform weights)."""
+
+    name = "glister"
+
+    def __init__(self, cfg: GlisterConfig):
+        super().__init__(cfg.R)
+        self.cfg = cfg
+
+    def _select(self):
+        idx = legacy.glister_select(
+            self.cfg.grad_fn(), self.cfg.val_grad_fn(), self.cfg.k, self.cfg.eta,
+            device=self.cfg.device,
+        )
+        return idx, np.ones(len(idx), np.float32)

@@ -58,7 +58,7 @@ _PREPROCESS_KEYS = (
 UNPORTED_SESSION = {
     "multihost_init": (False, "A11 (multi-host execution)"),
     "heartbeat_dir": (None, "A11 (multi-host liveness)"),
-    "selector_fallback": ((), "A9 (selector fallback chains)"),
+    "selector_fallback": ((), "A9b (selector fallback chains)"),
 }
 
 
@@ -174,22 +174,14 @@ def _init_classifier(seed: int, d_in: int, n_classes: int, hidden: int, lr0: flo
         torch.tensor(total_steps, dtype=torch.float32, device=device))
 
 
-# One step function per sub_steps value, shared across every train()/tune()
-# call: lr and horizon live in the state's tensors, so the fused engine
-# (cached per step function) reuses its graphs across a Hyperband lr sweep.
-_STEP_CACHE: dict[int, Any] = {}
-
-
 def _classifier_step_fn(sub_steps: int):
     """Weighted-CE Nesterov-SGD step with cosine decay; consumes the plan
     weights the pipeline injects into ``batch["weights"]``.  The reference's
     ``lax.scan`` over sub-steps is a loop here, with autograd per sub-step.
     Everything runs on the device — the cosine lr from the state's tensors,
     ``step += 1`` in place — so the step loop and a graph replay run the same
-    ops and no host value is baked into a captured graph."""
-    fn = _STEP_CACHE.get(sub_steps)
-    if fn is not None:
-        return fn
+    ops and no host value is baked into a captured graph.  Each call makes a
+    new function: ``MiloSession`` keeps one per ``sub_steps`` value."""
 
     def train_step(state: _ClassifierState, batch: dict):
         x, y = batch["x"], batch["y"]
@@ -208,8 +200,7 @@ def _classifier_step_fn(sub_steps: int):
         state.step.add_(1)
         return state, {"loss": loss.detach()}
 
-    fn = _STEP_CACHE[sub_steps] = train_step
-    return fn
+    return train_step
 
 
 class MiloSession:
@@ -236,6 +227,12 @@ class MiloSession:
         # trials, so the fused engine's graphs (which read the columns in
         # place) are captured once per shape, not once per trial
         self._columns: tuple[Any, Any, dict] | None = None
+        # one step function per sub_steps value, shared by every train() and
+        # tune() of this session: lr and horizon live in the state's tensors,
+        # so the fused engine (weakly keyed by step function) reuses its
+        # graphs across a Hyperband lr sweep, and the engine, its graphs,
+        # their static state and the resident buffers die with the session
+        self._steps: dict[int, Any] = {}
 
     # -- stage 1: model-agnostic preprocessing ------------------------------
 
@@ -402,13 +399,15 @@ class MiloSession:
     ) -> Selector:
         """Build this session's selector from the registry.  ``milo``,
         ``milo_fixed``, ``full``, ``random`` and ``adaptive_random`` are wired
-        from session state; other strategies (``milo_hier``,
-        ``milo_targeted``) take their inputs (labels, queries, ...) through
-        ``extra``.  Selection runs on the session's device, and ``milo``
-        takes ``wre_noise=`` through ``extra``."""
+        from session state; the other strategies (``milo_hier``,
+        ``milo_targeted`` and the paper's baselines) get the session's k,
+        n, seed, features and device for the fields their configs declare,
+        and take the rest (labels, queries, scores, ``grad_fn``, ``R``, ...)
+        through ``extra``.  Selection runs on the session's device, and
+        ``milo`` takes ``wre_noise=`` through ``extra``."""
         cfg = self.config
         name = name or cfg.selector
-        selector_entry(name)  # KeyError for names not ported yet
+        selector_entry(name)  # KeyError for unknown names
         epochs = epochs if epochs is not None else cfg.total_epochs
         seed = seed if seed is not None else cfg.seed
         explicit_k = "k" in extra
@@ -511,7 +510,9 @@ class MiloSession:
         pipe = Pipeline(make_batch, sel, batch_size, seed=seed,
                         arrays={"x": feats, "y": labs}, device=dev)
         steps = max(1, pipe.steps_per_epoch()) * epochs
-        train_step = _classifier_step_fn(cfg.sub_steps)
+        train_step = self._steps.get(cfg.sub_steps)
+        if train_step is None:
+            train_step = self._steps[cfg.sub_steps] = _classifier_step_fn(cfg.sub_steps)
 
         def init_state() -> _ClassifierState:
             return _init_classifier(seed, feats.shape[1], n_classes, hidden, float(lr),

@@ -40,7 +40,7 @@ set: buffers other than the cached graphs' drop those graphs.
 
 On the CPU (the device of the index block) the same ops run as an eager
 loop over the ``S`` steps.  On the card nothing falls back: a failed capture
-or replay raises.  The divergence guard is not ported (ROADMAP A9).
+or replay raises.  The divergence guard is not ported (ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -60,7 +60,7 @@ replays = 0
 def _refuse_guard(guard: Any) -> None:
     if guard is not None:
         raise NotImplementedError(
-            "the in-step divergence guard is not ported yet (ROADMAP A9)")
+            "the in-step divergence guard is not ported yet (ROADMAP A9b)")
 
 
 def _leaves(tree: Any) -> list[torch.Tensor]:
@@ -116,6 +116,11 @@ def _epoch_body(step: TrainStep, weight_key: str | None, state: Any, inputs: dic
     return _steps(step, state, batches)
 
 
+def _clear_cublas_workspaces() -> None:
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+
+
 class _Graph:
     """One captured segment over a static copy of the state and inputs."""
 
@@ -131,9 +136,16 @@ class _Graph:
         with torch.cuda.stream(side):
             body(self.state, self.inputs, buffers)
         torch.cuda.current_stream().wait_stream(side)
+        # cuBLAS keeps a workspace per stream it ran on for the life of the
+        # process.  Dropping them before and after the capture (as torch's
+        # own graph trees do) puts the workspace the graph uses in its
+        # private pool, freed with the graph, and leaves none behind for the
+        # warm-up's and the capture's streams
+        _clear_cublas_workspaces()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             self.out, self.metrics = body(self.state, self.inputs, buffers)
+        _clear_cublas_workspaces()
         captures += 1
 
     def __call__(self, state: Any, inputs: dict) -> tuple[Any, dict]:

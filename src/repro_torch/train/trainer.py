@@ -19,7 +19,7 @@ trainer with a custom ``put_batch``, take the step loop (the reference's
 rule: those batches are assembled on the host).
 
 Checkpoints and restart, the divergence guard, heartbeats and the prefetch
-thread are not ported yet (ROADMAP A10, A9, A11, A6); segments are cut as
+thread are not ported yet (ROADMAP A10, A9b, A11, A6); segments are cut as
 ``segment_length(..., checkpoint_every=0)`` gives them.
 """
 from __future__ import annotations

@@ -871,3 +871,104 @@ def test_dense_refine_union_gram_through_b1(cuda_device, monkeypatch):
         return float(gc.evaluate(mask, A_p))
 
     np.testing.assert_allclose(value(idx_k), value(idx_p), rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the paper's baselines and the encoder step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_craig_b4_route_matches_plain(cuda_device, monkeypatch):
+    """CRAIG over 4,096 gradient rows: the B4 route (one launch a greedy
+    step) against the plain facility location on the same card Gram,
+    index-equal up to a near-tie parting (within B4's chunked-sum rounding
+    budget, recomputed in float64), weights equal when the indices are."""
+    from repro_torch.baselines import selectors as base
+    from repro_torch.core.similarity import gram_matrix
+    from repro_torch.core.submodular import facility_location
+
+    n, k = 4096, 410
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(n, 10)).astype(np.float32),
+                        device=cuda_device)
+    before = fl_kernel.launches["fl_gains"]
+    ik, wk = base.craig_pb_select(g, k)
+    assert fl_kernel.launches["fl_gains"] - before == k
+    monkeypatch.setattr(base, "make_facility_location_pallas", lambda: facility_location)
+    ip, wp = base.craig_pb_select(g, k)
+    assert fl_kernel.launches["fl_gains"] - before == k
+    assert len(np.unique(ik)) == k and abs(float(wk.mean()) - 1.0) < 1e-5
+    parted = np.nonzero(ik != ip)[0]
+    if len(parted):
+        t = int(parted[0])
+        K = gram_matrix(g).double()
+        cover = (K[:, torch.as_tensor(ip[:t], device=cuda_device)].max(dim=1).values if t
+                 else torch.zeros(n, dtype=torch.float64, device=cuda_device))
+        ga, gb = (float(torch.relu(K[:, int(j)] - cover).sum()) for j in (ip[t], ik[t]))
+        assert abs(ga - gb) <= (256 + n / 256) * 2.0**-24 * max(ga, gb), (t, ga, gb)
+    else:
+        np.testing.assert_array_equal(wk, wp)
+
+
+def _float64_scores(g, gv, picks, name, lam=0.5, eta=0.1):
+    """The reference's float64 greedy scores (numpy) after ``picks``."""
+    g = np.asarray(g, np.float64)
+    if name == "gradmatch_pb":
+        r = g.mean(0)
+        for j in picks:
+            r = r - max(0.0, (g[j] @ r) / ((g[j] @ g[j]) + lam)) * g[j]
+        return g @ r
+    return g @ (np.asarray(gv, np.float64) - eta * g[list(picks)].sum(0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gradmatch_pb", "glister"])
+def test_float64_baselines_on_the_card_match_the_cpu(cuda_device, name):
+    """GRAD-MATCH and GLISTER's float64 greedy loops on the card pick the
+    CPU's indices up to a near-tie parting: at the first step where they
+    part, the two picks' float64 scores (numpy, after the CPU's picks)
+    agree to 1e-12 of the scores' scale, the largest score magnitude at
+    step 0 or at the parting.  GRAD-MATCH's residual decays geometrically
+    while its rounding error stays at float64 epsilon of its first scale,
+    so once its scores fall to ~1e-17 of that scale the picks are rounding
+    residue on either device (on an H100 they part at step 87 of 300, at
+    scores ~1e-20).  GRAD-MATCH's weights (mean 1) agree at rtol 1e-10 plus
+    atol 1e-12 when the indices do."""
+    from repro_torch.baselines import selectors as base
+
+    rng = np.random.default_rng(4)
+    g = rng.normal(size=(3000, 10)).astype(np.float32)
+    gv = rng.normal(size=(10,)).astype(np.float32)
+    if name == "gradmatch_pb":
+        (ic, wc), (ig, wg) = (base.gradmatch_omp_select(g, 300, device=d)
+                              for d in ("cpu", cuda_device))
+    else:
+        ic, ig = (base.glister_select(g, gv, 300, device=d) for d in ("cpu", cuda_device))
+    parted = np.nonzero(ic != ig)[0]
+    if len(parted):
+        t = int(parted[0])
+        scores = _float64_scores(g, gv, ic[:t], name)
+        scale = max(np.abs(_float64_scores(g, gv, [], name)).max(), np.abs(scores).max())
+        a, b = scores[ic[t]], scores[ig[t]]
+        assert abs(a - b) <= 1e-12 * scale, (t, a, b, scale)
+    elif name == "gradmatch_pb":
+        np.testing.assert_allclose(wg, wc, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_vit_on_the_card_matches_the_cpu(cuda_device):
+    """ViT-B/16 at published widths (random weights): two images on the
+    card against the port on the CPU at rtol 1e-4, atol 2e-4, and a repeat
+    on the card bit-equal."""
+    from repro_torch.encoders import ViTConfig, init_vit, vit_encode
+
+    cfg = ViTConfig()
+    params = init_vit(cfg, seed=0, device=cuda_device)
+    imgs = torch.as_tensor(np.random.default_rng(5).normal(size=(2, 224, 224, 3))
+                           .astype(np.float32))
+    z = vit_encode(params, imgs.to(cuda_device), cfg)
+    assert torch.equal(z, vit_encode(params, imgs.to(cuda_device), cfg))
+    cpu = {k: ([{kk: vv.cpu() for kk, vv in lp.items()} for lp in v] if k == "layers"
+               else v.cpu()) for k, v in params.items()}
+    np.testing.assert_allclose(z.cpu().numpy(), vit_encode(cpu, imgs, cfg).numpy(),
+                               rtol=1e-4, atol=2e-4)

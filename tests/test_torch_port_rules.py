@@ -167,11 +167,28 @@ def test_configs_build_from_each_other():
 
 
 def test_unported_selectors_raise_keyerror():
-    for name in ("el2n", "selfsup_prune", "craig_pb"):
-        with pytest.raises(KeyError, match="not ported yet"):
-            build_selector(name)
-    sel = build_selector("random", n=50, k=5, seed=0)
-    assert len(np.unique(sel.plan(0).indices)) == 5
+    """Every name of the reference's registry is ported: the five baselines
+    the port refused until they landed build and plan through
+    ``build_selector``; only a name no package registers raises."""
+    with pytest.raises(KeyError, match="unknown selector"):
+        build_selector("not_a_selector")
+    rng = np.random.default_rng(0)
+    feats = rng.normal(size=(50, 6)).astype(np.float32)
+    grads = rng.normal(size=(50, 6))
+    built = {
+        "el2n": build_selector("el2n", scores=rng.random(50), k=5),
+        "selfsup_prune": build_selector("selfsup_prune", features=feats, k=5, n_prototypes=3,
+                                        device="cpu"),
+        "craig_pb": build_selector("craig_pb", grad_fn=lambda: grads, k=5, R=2, device="cpu"),
+        "gradmatch_pb": build_selector("gradmatch_pb", grad_fn=lambda: grads, k=5, R=2,
+                                       device="cpu"),
+        "glister": build_selector("glister", grad_fn=lambda: grads,
+                                  val_grad_fn=lambda: grads[0], k=5, R=2, device="cpu"),
+        "random": build_selector("random", n=50, k=5, seed=0),
+    }
+    for name, sel in built.items():
+        plan = sel.plan(0).validate(50)
+        assert plan.k == 5 and plan.provenance["selector"] == name, name
 
 
 def test_chip_smoke_refuses_without_a_card_and_rehearses_on_cpu():
