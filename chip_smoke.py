@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-17 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-18 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -124,6 +124,32 @@ Phases, in order; any failure ends the run with a non-zero exit:
     per-stream workspaces dropped) before each session, after its work and
     after ``del``: the last must come back within 8 MiB of the first, and
     the largest tensors still alive are named when it does not.
+18. LM training with checkpoints, restart and the divergence guard (no
+    kernel of the table lies on this path: training runs chunked attention,
+    which the reference's Pallas kernel cannot replace under autograd —
+    asserted by the flash and SSD launch counts staying 0): (a)
+    ``launch/train.py``'s flow on internlm2-1.8b at full width and depth
+    (24 layers, d_model 2048, 16/8 heads, vocab 92,544; bf16, chunked
+    attention, remat): MILO over 512 documents, k = 128, batch 16 × 64
+    tokens, 4 epochs (32 steps), adamw with cosine lr from 1e-3, ``--ckpt``
+    (steps 20 and 32); median step, steps/s and tokens/s over the steps'
+    device time, loss first → last (must decrease), peak memory, the
+    checkpoint's bytes and its save split into host snapshot, write+fsync
+    and sha256, validate+restore (bit-equal); then the chunked route (4 KV
+    blocks of 16) against naive attention on one batch, loss and every
+    gradient leaf within ``ROUTE_TOL``; (b) ``examples/train_lm_milo.py``'s
+    kill-and-resume on granite-moe-1b-a400m at full width and depth (24
+    layers, 32 experts top-8): 24 steps with checkpoints at 16 and 24, step
+    24's shard corrupted by one byte, ``latest_valid_step`` skipping it, a
+    fresh ``Trainer`` resuming at 16 and replaying to 24 — parameters, both
+    Adam moments and the replayed history bit-equal to the uninterrupted
+    run's; (c) the guard on the fused path at phase 14's geometry (CUDA
+    graphs): ``skip_step`` on healthy data bit-equal to unguarded with as
+    many synchronising calls (``torch.cuda.set_sync_debug_mode``), a NaN
+    plan weight skipped with the counter advanced (unguarded, the
+    parameters go non-finite), ``rollback`` replaying to ``skip_step``'s
+    state.  Checkpoints go under the git-ignored ``build/phase18/`` and are
+    removed at the end of each sub-phase.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
@@ -139,6 +165,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import hashlib
 import json
@@ -1373,13 +1400,14 @@ def phase_serve(dev, cfg, label: str, prompts, *, new_tokens: int, max_batch: in
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
+    from repro_torch import tree as T
     from repro_torch.models import lm
     from repro_torch.serve import lm_engine
 
     t0 = time.perf_counter()
     model = lm.init_lm(cfg, seed=seed, device=dev)
     _sync(dev)
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in T.leaves(model))
     log(f"{label}: {n_params / 1e9:.3f} B parameters ({cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, {cfg.num_experts} experts, {cfg.dtype}), built in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -1495,6 +1523,7 @@ def phase_jamba_routes(dev, cfg, model, prompt, *, max_len: int, steps: int = 8)
     """
     import dataclasses
 
+    from repro_torch.models import lm
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.attention import attention
     from repro_torch.models.blocks import apply_block
@@ -1507,18 +1536,19 @@ def phase_jamba_routes(dev, cfg, model, prompt, *, max_len: int, steps: int = 8)
     positions = torch.arange(P, device=dev)[None]
     rels = []
     with torch.no_grad():
-        x = model.embed[tokens]
-        for block in model.blocks:
-            h = rms_norm(x, block.norm1, cfg.norm_eps)
-            if block.mixer_kind == "attn":
+        x = model["embed"][tokens]
+        for block, kinds in zip(lm.layer_params(model, cfg), lm.layer_kinds(cfg)):
+            h = rms_norm(x, block["norm1"], cfg.norm_eps)
+            if kinds[0] == "attn":
                 rope = dict(rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
-                y_k, _ = attention(block.mixer, h, positions, impl=cfg.attention_impl, **rope)
-                y_p, _ = attention(block.mixer, h, positions, impl=plain.attention_impl, **rope)
+                y_k, _ = attention(block["mixer"], h, positions, impl=cfg.attention_impl, **rope)
+                y_p, _ = attention(block["mixer"], h, positions, impl=plain.attention_impl, **rope)
             else:
-                y_k, _ = mamba(block.mixer, h, chunk=cfg.ssm_chunk, impl=cfg.ssm_impl)
-                y_p, _ = mamba(block.mixer, h, chunk=cfg.ssm_chunk, impl=plain.ssm_impl)
+                y_k, _ = mamba(block["mixer"], h, chunk=cfg.ssm_chunk, impl=cfg.ssm_impl)
+                y_p, _ = mamba(block["mixer"], h, chunk=cfg.ssm_chunk, impl=plain.ssm_impl)
             rels.append(_rel(y_k, y_p))
-            x, _ = apply_block(block, x, cfg=cfg, positions=positions, cache=None, mode="train")
+            x, _ = apply_block(block, x, cfg=cfg, kinds=kinds, positions=positions, cache=None,
+                               mode="train")
     log(f"jamba request 0 ({P} tokens), layer by layer on the same input: mixer output, kernel "
         f"route against plain route, relative max error {[f'{r:.2e}' for r in rels]} "
         "(bound 0.02)")
@@ -2791,10 +2821,443 @@ def phase_baselines(dev, x, y, tx, ty, *, smi: str, sizes: dict, epochs: int) ->
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 18: LM training with checkpoints, restart and the divergence guard
+# ---------------------------------------------------------------------------
+
+#: bf16 route check of 18a (chunked against naive attention on one batch):
+#: the chunked route rounds its softmax probabilities to bf16 before p·v,
+#: naive keeps them f32 — the loss within 1e-2 relative, every gradient
+#: leaf within 5e-2 in relative Frobenius norm
+ROUTE_TOL = dict(loss=1e-2, grad=5e-2)
+
+
+def _ckpt_dir(name: str) -> Path:
+    """A fresh directory for phase 18's checkpoints inside the checkout (a
+    git-ignored build directory), removed at the end of its sub-phase."""
+    import shutil
+
+    d = ROOT / "build" / "phase18" / name
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    return d
+
+
+def _free_disk_gib(path: Path) -> float:
+    import shutil
+
+    return shutil.disk_usage(path).free / 2**30
+
+
+def _state_bytes(state) -> int:
+    from repro_torch import tree as T
+
+    return sum(t.numel() * t.element_size() for t in T.leaves(state))
+
+
+def _states_bit_equal(a, b) -> int:
+    """Assert two train states equal bit for bit; returns the leaves held."""
+    from repro_torch import tree as T
+
+    la, lb = T.leaves(a), T.leaves(b)
+    assert len(la) == len(lb), (len(la), len(lb))
+    for i, (x, y) in enumerate(zip(la, lb)):
+        assert x.dtype == y.dtype and x.shape == y.shape, (i, x.dtype, y.dtype)
+        assert torch.equal(x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)), \
+            f"leaf {i} of {len(la)} ({tuple(x.shape)}, {x.dtype}) differs"
+    return len(la)
+
+
+def _timed_step(step, dev, marks: list):
+    """``step`` with a pair of CUDA events around each call (no host read;
+    the times are read after the run), or the host clock on the CPU."""
+    import functools
+
+    @functools.wraps(step)
+    def timed(state, batch):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(state, batch)
+            end.record()
+            marks.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            marks.append(time.perf_counter() - t0)
+        return out
+
+    return timed
+
+
+def _step_ms(marks: list, dev) -> list[float]:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        return [s.elapsed_time(e) for s, e in marks]
+    return [1e3 * t for t in marks]
+
+
+def phase_lm_launcher(dev, *, rehearsal: bool, smi: str) -> dict:
+    """18a: ``launch/train.py``'s flow on internlm2-1.8b at full width and
+    depth: MILO over 512 documents, k = 128, batch 16 × 64 tokens, 4 epochs
+    (32 steps), adamw with cosine lr from 1e-3, ``--ckpt`` (a checkpoint
+    every 20 steps and at the end), run by ``launch.train`` as the
+    launcher's ``main`` runs it (a timing hook around the step); then the
+    newest checkpoint validated and restored, and the chunked route against
+    naive attention on one batch with 4 KV blocks."""
+    from repro_torch import tree as T
+    from repro_torch.configs import registry
+    from repro_torch.launch import train as launch
+    from repro_torch.train.train_state import _loss_and_grads
+
+    log("== phase 18a: launch/train.py on internlm2-1.8b (chunked attention, remat, bf16, "
+        "checkpoints)")
+    ckpt = _ckpt_dir("18a")
+    argv = ["--arch", "internlm2-1.8b", "--device", dev.type, "--ckpt", str(ckpt)]
+    cfg = None
+    if rehearsal:
+        argv.append("--smoke")
+        cfg = dataclasses.replace(registry.smoke("internlm2-1.8b"), attention_impl="chunked",
+                                  remat=True, dtype="bfloat16")
+    args = launch.parse_args(argv)
+    free = _free_disk_gib(ckpt)
+    marks: list = []
+    # the launcher's own path (launch.train, as its main runs it), with
+    # CUDA events around each step; the peak covers the build and the fit
+    held = _reset_peak(dev)
+    t0 = time.perf_counter()
+    run, state = launch.train(args, cfg=cfg, wrap_step=lambda step: _timed_step(step, dev, marks))
+    _sync(dev)
+    total_s = time.perf_counter() - t0
+    peak = _peak_mib(dev, held)
+    cfg, tr, fit_s = run["cfg"], run["trainer"], run["fit_s"]
+    assert cfg.attention_impl == "chunked" and cfg.remat and cfg.dtype == "bfloat16", cfg
+    n_params = sum(t.numel() for t in T.leaves(state.params))
+    state_mib = _state_bytes(state) / 2**20
+    log(f"{cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, heads {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}: "
+        f"{n_params:,} parameters ({cfg.param_count():,} analytic); state "
+        f"{_state_bytes(state) / 1e9:.2f} GB; MILO k = {run['subset_k']} of {args.n_docs} "
+        f"documents, preprocess {run['preprocess_s']:.3f} s, build {total_s - fit_s:.1f} s; free "
+        f"disk {free:.1f} GiB")
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    summary = launch.summary(args, run, state)
+    ms = _step_ms(marks, dev)
+    steps = len(ms)
+    tokens = args.batch_size * 64
+    train_s = sum(ms) / 1e3
+    losses = [(h["step"], h["loss"]) for h in tr.history if "loss" in h]
+    save = dict(tr.ckpt.last_save)
+    peak_text = ("peak memory not measured (cpu)" if peak is None else
+                 f"peak memory {peak:.1f} MiB over launch.train (build and fit) above the "
+                 f"{held:.1f} MiB earlier phases hold: the {state_mib:.1f} MiB state and "
+                 f"{peak - state_mib:.1f} MiB more")
+    log(f"launcher summary: {json.dumps(summary)}")
+    log(f"{steps} steps: median {np.median(ms):.2f} ms (first {ms[0]:.1f} ms), "
+        f"{steps / train_s:.2f} steps/s, {steps * tokens / train_s:.0f} tokens/s over the steps' "
+        f"device time ({train_s:.3f} s); fit {fit_s:.3f} s with its checkpoints: "
+        f"{steps * tokens / fit_s:.0f} tokens/s over the fit; loss "
+        f"{losses[0][1]:.4f} (step {losses[0][0]}) -> {losses[-1][1]:.4f} (step {losses[-1][0]}); "
+        f"{peak_text}")
+    log(f"checkpoint step {save['step']}: {save['bytes'] / 1e9:.3f} GB; save: host snapshot "
+        f"{save['snapshot_s']:.3f} s, write+fsync {save['write_s']:.3f} s, sha256 "
+        f"{save['sha256_s']:.3f} s; steps on disk {tr.ckpt.all_steps()}")
+    assert summary["steps"] == steps == int(state.step) == args.epochs * (run["subset_k"] //
+                                                                          args.batch_size)
+    assert losses[-1][1] < losses[0][1], f"loss must decrease: {losses}"
+    assert tr.ckpt.all_steps() == [20, 32], tr.ckpt.all_steps()
+    t0 = time.perf_counter()
+    back = tr.ckpt.restore(32, state)   # validates the checksums first
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    held_leaves = _states_bit_equal(back, state)
+    log(f"validate + restore of step 32: {restore_s:.3f} s; {held_leaves} leaves bit-equal to the "
+        "trained state")
+    del back
+    # route check: one batch, attn_block 16 (S = 64 spans 4 KV blocks),
+    # chunked against naive attention, at the trained weights
+    batch = tr.put_batch(next(iter(run["pipeline"].epoch(0))))
+    chunked = dataclasses.replace(cfg, attn_block=16)
+    naive = dataclasses.replace(cfg, attention_impl="naive")
+    loss_c, g_c = _loss_and_grads(state.params, chunked, batch)
+    loss_n, g_n = _loss_and_grads(state.params, naive, batch)
+    rel = [float(torch.linalg.vector_norm((a.float() - b.float())) /
+                 torch.clamp_min(torch.linalg.vector_norm(b.float()), 1e-30))
+           for a, b in zip(T.leaves(g_c), T.leaves(g_n))]
+    loss_rel = abs(float(loss_c) - float(loss_n)) / abs(float(loss_n))
+    log(f"route check (4 KV blocks of 16 against naive, bf16): loss {float(loss_c):.6f} / "
+        f"{float(loss_n):.6f} (relative {loss_rel:.2e}, bound {ROUTE_TOL['loss']}); gradient "
+        f"leaves' relative error max {max(rel):.2e}, median {float(np.median(rel)):.2e} (bound "
+        f"{ROUTE_TOL['grad']}); {smi}")
+    assert loss_rel <= ROUTE_TOL["loss"] and max(rel) <= ROUTE_TOL["grad"], (loss_rel, max(rel))
+    del g_c, g_n
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"arch": cfg.name, "params": n_params, "steps": steps,
+            "median_step_ms": float(np.median(ms)), "steps_per_s": steps / train_s,
+            "tokens_per_s": steps * tokens / train_s, "fit_s": fit_s,
+            "fit_tokens_per_s": steps * tokens / fit_s, "state_mib": state_mib,
+            "loss_first": losses[0][1], "loss_last": losses[-1][1], "peak_mib": peak,
+            "checkpoint": save, "validate_restore_s": restore_s,
+            "route": {"loss_rel": loss_rel, "grad_rel_max": max(rel)}}
+
+
+def _corrupt_one_byte(directory: Path, step: int) -> int:
+    """Flip one byte in the middle of ``step_<step>/shard_0.npz``; returns
+    its offset."""
+    path = directory / f"step_{step}" / "shard_0.npz"
+    off = path.stat().st_size // 2
+    with open(path, "r+b") as f:
+        f.seek(off)
+        b = f.read(1)
+        f.seek(off)
+        f.write(bytes([b[0] ^ 0xFF]))
+    return off
+
+
+def phase_lm_resume(dev, *, rehearsal: bool) -> dict:
+    """18b: ``examples/train_lm_milo.py``'s kill-and-resume, stricter, on
+    granite-moe-1b-a400m at full width and depth: checkpoints every 16 of 24
+    steps, the newest then corrupted by one byte, a fresh ``Trainer``
+    resumes from the one before it and replays to the end under the guard
+    (``skip_step``); parameters and both Adam moments bit-equal to the
+    uninterrupted, unguarded run's, and the two runs' peaks beside each
+    other."""
+    from repro_torch.configs import registry
+    from repro_torch.core.milo import MiloPreprocessor
+    from repro_torch.data.datasets import TokenLMDataset
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.health import GuardPolicy
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim.schedules import cosine
+    from repro_torch.selection import build_selector
+    from repro_torch.train.train_state import init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    log("== phase 18b: kill and resume past a corrupted checkpoint (granite-moe-1b-a400m)")
+    cfg = registry.get("granite-moe-1b-a400m")
+    if rehearsal:
+        cfg = dataclasses.replace(registry.smoke(cfg), attention_impl="chunked", remat=True,
+                                  dtype="bfloat16")
+    ckpt = _ckpt_dir("18b")
+    ds = TokenLMDataset(n_docs=256, seq_len=64, vocab=cfg.vocab_size, seed=0)
+    pre = MiloPreprocessor(subset_fraction=0.5, n_sge_subsets=4, classwise=False, device=dev)
+    md = pre.preprocess(ds.features(), None, seed=0)
+    batch_size, every = 16, 16
+    steps_per_epoch = md.k // batch_size
+    epochs = 3
+    total = steps_per_epoch * epochs
+    sel = build_selector("milo", metadata=md, total_epochs=epochs, kappa=1 / 6, R=1, device=dev)
+    pipe = Pipeline(ds.batch, sel, batch_size, seed=0, device=dev)
+    opt = adamw()
+    step_fn = make_train_step(cfg, opt, cosine(1e-3, total, warmup=10))
+    tcfg = TrainerConfig(epochs=epochs, checkpoint_dir=str(ckpt), checkpoint_every_steps=every,
+                         log_every_steps=8)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    need = 2 * _state_bytes(state) / 2**30
+    free = _free_disk_gib(ckpt)
+    log(f"k = {md.k}, {steps_per_epoch} steps an epoch, {total} steps; state "
+        f"{_state_bytes(state) / 1e9:.2f} GB, two checkpoints need {need:.1f} GiB of the "
+        f"{free:.1f} GiB free")
+    assert free > need + 2, f"{free:.1f} GiB free cannot hold two checkpoints ({need:.1f} GiB)"
+    box = [state]   # the trainer alone holds the state while it trains
+    del state
+    held_mib = _reset_peak(dev)
+    t0 = time.perf_counter()
+    tr = Trainer(step_fn, pipe, tcfg)
+    ref = tr.fit(box.pop(), resume=False)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    peak_ref = _peak_mib(dev, held_mib)
+    steps_on_disk = tr.ckpt.all_steps()
+    assert steps_on_disk == [every, total], steps_on_disk
+    losses = [(h["step"], h["loss"]) for h in tr.history if "loss" in h]
+    assert losses[-1][1] < losses[0][1], f"loss must decrease: {losses}"
+    off = _corrupt_one_byte(ckpt, total)
+    # the resume runs guarded (skip_step): healthy, it must give the
+    # unguarded run's bits, and the guard over this functional step copies
+    # no state (its peak against the unguarded run's)
+    tr2 = Trainer(step_fn, pipe, TrainerConfig(epochs=epochs, checkpoint_dir=str(ckpt),
+                                               checkpoint_every_steps=every, log_every_steps=8,
+                                               guard=GuardPolicy("skip_step")))
+    box = [init_train_state(cfg, opt, seed=0, device=dev)]
+    held2_mib = _reset_peak(dev)
+    t0 = time.perf_counter()
+    resumed = tr2.fit(box.pop(), resume=True)
+    _sync(dev)
+    resume_s = time.perf_counter() - t0
+    peak_guarded = _peak_mib(dev, held2_mib)
+    assert tr2.guard_report() is None, tr2.guard_report()
+    held = _states_bit_equal(resumed, ref)
+    # the resume replayed exactly the steps after `every`: latest_valid_step
+    # skipped the corrupted newest checkpoint
+    ref_tail = [h for h in tr.history if h.get("step", 0) > every]
+    strip = lambda hs: [{k: v for k, v in h.items() if k not in ("wall", "guard_bad")}  # noqa
+                        for h in hs]
+    assert strip(tr2.history) == strip(ref_tail), (tr2.history, ref_tail)
+    peaks = ("peak memory not measured (cpu)" if peak_ref is None else
+             f"peak memory {peak_ref:.1f} MiB unguarded (fit) / {peak_guarded:.1f} MiB guarded "
+             f"(resume: restore, steps, save) above the {held_mib:.1f} / {held2_mib:.1f} MiB held before, "
+             f"state {_state_bytes(ref) / 2**20:.1f} MiB")
+    log(f"uninterrupted: {total} steps and 2 checkpoints in {fit_s:.3f} s, loss "
+        f"{losses[0][1]:.4f} -> {losses[-1][1]:.4f}; step {total}'s shard corrupted at byte "
+        f"{off}; a fresh Trainer skipped it, resumed at {every} and replayed {total - every} "
+        f"steps in {resume_s:.3f} s (validate both, restore, steps, final checkpoint) under "
+        f"GuardPolicy('skip_step'): {held} leaves (parameters, both Adam moments, t, step) and "
+        f"{len(tr2.history)} history records bit-equal to the uninterrupted, unguarded run's; "
+        f"{peaks}")
+    del ref, resumed
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"arch": cfg.name, "steps": total, "fit_s": fit_s, "resume_s": resume_s,
+            "leaves": held, "checkpoint": dict(tr2.ckpt.last_save),
+            "peak_mib": {"unguarded": peak_ref, "guarded": peak_guarded}}
+
+
+def _poisoned(selector, epoch: int, pos: int):
+    """``selector`` whose plan for ``epoch`` carries a NaN weight at ``pos``."""
+    class Poisoned:
+        def plan(self, e):
+            plan = selector.plan(e)
+            if e != epoch:
+                return plan
+            w = np.array(plan.weights, np.float32)
+            w[pos] = np.nan
+            return dataclasses.replace(plan, weights=w)
+
+    return Poisoned()
+
+
+def _count_syncs(fn):
+    """(result, synchronising calls) of ``fn()`` on the card, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def phase_guard_fused(dev, x, y, md, *, epochs: int = 2, batch_size: int = 32,
+                      superstep: int = 32) -> dict:
+    """18c: the divergence guard on the fused path at phase 14's geometry
+    (phase 5's data and artifact, ``milo``, batch 32, segments of 32 as
+    CUDA graphs): healthy ``skip_step`` bit-equal to unguarded with as many
+    host reads (after a warm-up fit); a NaN plan weight skipped with the step counter advanced;
+    ``rollback`` (a checkpoint every quarter epoch) replaying to
+    ``skip_step``'s state."""
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.health import GuardPolicy
+    from repro_torch.selection import build_selector
+    from repro_torch.selection import session as session_mod
+    from repro_torch.train import engine as engine_mod
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    log(f"== phase 18c: the divergence guard on the fused path (graphs, superstep {superstep})")
+    sel = build_selector("milo", metadata=md, total_epochs=epochs, seed=0, device=dev)
+    k = sel.plan(0).k
+    steps_per_epoch = k // batch_size
+    total = steps_per_epoch * epochs
+    every = max(1, steps_per_epoch // 4)
+    # poison epoch 0's step every + every // 2 (0-based): after the first
+    # checkpoint, so rollback has one to restore; the position is the plan
+    # row that the pipeline's permutation puts there
+    perm = np.random.default_rng(0 * 1_000_003 + 0).permutation(k)
+    bad = min(steps_per_epoch - 1, every + every // 2)
+    pos = int(perm[bad * batch_size + 5])
+    step_fn = session_mod._classifier_step_fn(1)
+    n_classes = int(y.max()) + 1
+
+    def run(guard=None, selector=sel, ckpt=None):
+        pipe = Pipeline(None, selector, batch_size, seed=0, arrays={"x": x, "y": y}, device=dev)
+        tr = Trainer(step_fn, pipe, TrainerConfig(
+            epochs=epochs, log_every_steps=1, guard=guard,
+            checkpoint_dir=None if ckpt is None else str(ckpt),
+            checkpoint_every_steps=every if ckpt is not None else 0, async_checkpoint=False),
+            fused=True, superstep=superstep)
+        init = lambda: session_mod._init_classifier(0, x.shape[1], n_classes, 64, 0.01,  # noqa
+                                                    total, dev)
+        held = _reset_peak(dev)
+        tr.warm_fused(init())
+        state, syncs = (_count_syncs(lambda: tr.fit(init(), resume=False)) if dev.type == "cuda"
+                        else (tr.fit(init(), resume=False), None))
+        tr.peak_mib = _peak_mib(dev, held)
+        return state, tr, syncs
+
+    engine_mod.captures = engine_mod.replays = 0
+    # a first fit pays one-time host reads the later ones do not: warm up
+    # with one, then the unguarded and the guarded run read equally often
+    _, _, syncs_first = run()
+    base, tr_base, syncs_base = run()
+    healthy, tr_h, syncs_h = run(GuardPolicy("skip_step"))
+    for key in base.params:
+        assert torch.equal(_bits(base.params[key]), _bits(healthy.params[key])), key
+        assert torch.equal(_bits(base.mom[key]), _bits(healthy.mom[key])), key
+    assert tr_h.guard_report() is None and syncs_h == syncs_base, (syncs_h, syncs_base)
+    assert all(h["guard_bad"] == 0.0 for h in tr_h.history if "loss" in h)
+    poison = _poisoned(sel, 0, pos)
+    skip, tr_s, _ = run(GuardPolicy("skip_step"), poison)
+    rep = tr_s.guard_report()
+    assert rep["skipped_steps"] == 1 and int(skip.step) == total, (rep, int(skip.step))
+    bad_step = rep["events"][0]["step"]
+    assert bad_step == bad + 1, (bad_step, bad)
+    assert all(torch.isfinite(v).all() for v in skip.params.values())
+    wrecked, _, _ = run(None, poison)
+    assert not all(torch.isfinite(v).all() for v in wrecked.params.values()), \
+        "an unguarded run takes the NaN weight into its parameters"
+    ckpt = _ckpt_dir("18c")
+    rolled, tr_r, _ = run(GuardPolicy("rollback"), poison, ckpt)
+    rep_r = tr_r.guard_report()
+    assert rep_r["rollbacks"] == 1 and rep_r["skipped_steps"] == 1, rep_r
+    # the newest checkpoint before the flagged segment: checkpoints are
+    # written after the segment's flags are read
+    assert [h["restored_step"] for h in tr_r.history if h.get("guard")] == [bad // every * every]
+    for key in skip.params:
+        assert torch.equal(_bits(skip.params[key]), _bits(rolled.params[key])), key
+        assert torch.equal(_bits(skip.mom[key]), _bits(rolled.mom[key])), key
+    restored = [h["restored_step"] for h in tr_r.history if h.get("guard") == "rollback"]
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    state_mib = _state_bytes(base) / 2**20
+    log(f"{total} steps ({steps_per_epoch} an epoch); healthy skip_step bit-equal to unguarded, "
+        f"synchronising calls {syncs_h} / {syncs_base} (the warm-up fit {syncs_first}); peak memory (captures included) "
+        f"{tr_h.peak_mib} / {tr_base.peak_mib} MiB guarded / unguarded, the guard's pre-step "
+        f"copy one state ({state_mib:.3f} MiB) a step; NaN weight: step {bad_step} skipped, "
+        f"counter at {int(skip.step)}, unguarded parameters non-finite; rollback restored step "
+        f"{restored} and replayed to skip_step's state bit for bit; graph captures "
+        f"{engine_mod.captures}, replays {engine_mod.replays}")
+    return {"steps": total, "syncs": [syncs_first, syncs_base, syncs_h], "skipped_step": bad_step,
+            "peak_mib": [tr_base.peak_mib, tr_h.peak_mib], "state_mib": state_mib,
+            "restored": restored, "captures": engine_mod.captures,
+            "replays": engine_mod.replays}
+
+
+def phase_lm_training(dev, x, y, md, *, rehearsal: bool, smi: str) -> dict:
+    """Phase 18; no kernel of the table lies on its path (asserted)."""
+    _reset_launches()
+    out = {"18a": phase_lm_launcher(dev, rehearsal=rehearsal, smi=smi),
+           "18b": phase_lm_resume(dev, rehearsal=rehearsal)}
+    out["18c"] = phase_guard_fused(dev, x, y, md)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
+
+    assert fa.launches == sc.launches == 0, "phase 18 trains on chunked attention"
+    log("phase 18 summary: " + json.dumps(out, default=float))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-17 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-18 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -2822,6 +3285,8 @@ def main() -> int:
                            smi="cpu (rehearsal)", sizes=HIER_SIZES["rehearsal"], epochs=12)
         phase_baselines(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
                         smi="cpu (rehearsal)", sizes=BASELINE_SIZES["rehearsal"], epochs=12)
+        phase_lm_training(dev, main_run["x"], main_run["y"], md, rehearsal=True,
+                          smi="cpu (rehearsal)")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -2853,6 +3318,8 @@ def main() -> int:
                               sizes=HIER_SIZES["full"], epochs=12)
     base = phase_baselines(dev, *train_data.values(), smi=dev_info["smi"],
                            sizes=BASELINE_SIZES["full"], epochs=12)
+    phase_lm_training(dev, train_data["x"], train_data["y"], md, rehearsal=False,
+                      smi=dev_info["smi"])
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
         ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",

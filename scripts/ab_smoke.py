@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py`` of two checkouts of the repo in turn on one card.
 
-    python3 scripts/ab_smoke.py PARENT CHANGE [--order PCCP] [--out build/ab_logs]
+    python3 scripts/ab_smoke.py PARENT CHANGE [--order PCCP] [--out build/ab_logs] [--serving]
 
 PARENT and CHANGE are directories that each hold a checkout (for example
 ``git archive <commit>`` unpacked); the runs go in ``--order`` (P for the
@@ -17,6 +17,11 @@ the run saves (phases 5 and 7).  The digests come from a hook on ``MiloMetadata.
 before the checkout's own smoke starts, so a checkout whose smoke prints no
 digest is compared the same way.  Exits non-zero if a run fails or if the
 runs' artifacts differ.
+
+With ``--serving`` each run drives only phases 1, 2, 12 and 13 of its
+checkout's smoke (device, kernel build, yi-6b and Jamba serving through
+``ServeEngine``), whose prefill and decode lines are printed; no artifact
+is saved, so none is compared.
 """
 from __future__ import annotations
 
@@ -44,11 +49,20 @@ KEYS = ("fl_gains_gram_free (8192, 8192, 768), ", "  on the card alone", "  boun
         "  launches: flash_attention", "  ssd_chunk launches expected", "jamba request 0")
 
 
-def run_smoke(tree: Path) -> None:
-    """Run ``tree``'s ``chip_smoke.py`` as ``__main__`` with the digest hook."""
+def run_smoke(tree: Path, serving: bool = False) -> None:
+    """Run ``tree``'s ``chip_smoke.py`` as ``__main__`` with the digest hook,
+    or only its serving phases (``serving``)."""
     import numpy as np
 
     sys.path.insert(0, str(tree / "src"))
+    if serving:
+        import torch
+
+        smoke = runpy.run_path(str(tree / "chip_smoke.py"), run_name="chip_smoke_ab")
+        smoke["phase_device"](False)
+        smoke["phase_build"]()
+        smoke["phase_lm_serving"](torch.device("cuda"), rehearsal=False)
+        return
     from repro_torch.core.metadata import MiloMetadata
 
     save = MiloMetadata.save
@@ -71,10 +85,11 @@ def main() -> int:
     ap.add_argument("change", type=Path, nargs="?")
     ap.add_argument("--order", default="PCCP")
     ap.add_argument("--out", type=Path, default=Path("build/ab_logs"))
+    ap.add_argument("--serving", action="store_true", help="phases 1, 2, 12 and 13 only")
     ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)  # one run, in a child process
     args = ap.parse_args()
     if args.run:
-        run_smoke(args.run.resolve())
+        run_smoke(args.run.resolve(), args.serving)
         return 0
     if args.parent is None or args.change is None or set(args.order) - {"P", "C"}:
         ap.error("give PARENT and CHANGE, and an --order of P and C")
@@ -86,7 +101,8 @@ def main() -> int:
         log = args.out / f"{i}_{label}.log"
         t0 = time.perf_counter()
         with open(log, "w") as f:
-            rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--run", str(tree)],
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--run", str(tree)]
+            rc = subprocess.run(cmd + ["--serving"] * args.serving,
                                 stdout=f, stderr=subprocess.STDOUT).returncode
         lines = log.read_text().splitlines()
         print(f"== run {i} {label} ({tree}): exit {rc}, {time.perf_counter() - t0:.0f} s, "
@@ -101,9 +117,9 @@ def main() -> int:
     same = all(len(v) == 1 for v in digests.values())
     for key, values in sorted(digests.items()):
         print(f"{key}: {'the same in every run' if len(values) == 1 else 'DIFFERS: ' + str(values)}")
-    if not digests:
+    if not digests and not args.serving:
         print("no artifact digests were printed")
-    return 1 if failed or not same or not digests else 0
+    return 1 if failed or not same or not (digests or args.serving) else 0
 
 
 if __name__ == "__main__":

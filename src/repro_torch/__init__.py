@@ -19,7 +19,10 @@ through the hand-written ``fl_gains`` kernels (``kernels/fl_gains``).  And the
 LM serving path: ``serve.lm_engine.ServeEngine`` over ``models.lm`` (dense,
 MoE and Mamba blocks), whose prefill runs the hand-written flash-attention
 (``kernels/flash_attention``) and SSD chunk (``kernels/ssd_chunk``) kernels
-with ``attention_impl="pallas"`` and ``ssm_impl="pallas"``.
+with ``attention_impl="pallas"`` and ``ssm_impl="pallas"``.  And LM
+training on MILO subsets (``launch.train``, ``train.train_state``,
+``optim``): chunked attention, checkpoints (``checkpoint``) that load across
+packages, deterministic restart, and the divergence guard (``health``).
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; without a card they raise instead of carrying on elsewhere.

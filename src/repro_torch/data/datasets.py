@@ -1,6 +1,7 @@
-"""Synthetic datasets for the smoke run and the tests (a copy of
-``GaussianMixtureDataset`` from ``repro.data.datasets``; numpy only, so the
-same seed gives the same data in both packages).
+"""Synthetic datasets for the smoke run and the tests (copies of
+``GaussianMixtureDataset`` and ``TokenLMDataset`` from
+``repro.data.datasets``; numpy only, so the same seed gives the same data in
+both packages).
 
 ``GaussianMixtureDataset`` — c well-separated class clusters with dense cores
 and sparse tails, so representation vs diversity set functions behave as in
@@ -60,3 +61,35 @@ class GaussianMixtureDataset:
             idx[n_test : n_test + n_val],
             idx[:n_test],
         )
+
+
+@dataclasses.dataclass
+class TokenLMDataset:
+    """Synthetic next-token corpus for the LM substrate examples."""
+
+    n_docs: int = 512
+    seq_len: int = 128
+    vocab: int = 256
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # structured: arithmetic-progression motifs the model can learn
+        base = rng.integers(0, self.vocab, size=(self.n_docs, 1))
+        step = rng.integers(1, 7, size=(self.n_docs, 1))
+        pos = np.arange(self.seq_len + 1)[None, :]
+        self.tokens = ((base + step * pos) % self.vocab).astype(np.int32)
+        noise = rng.random((self.n_docs, self.seq_len + 1)) < 0.05
+        self.tokens[noise] = rng.integers(0, self.vocab, size=int(noise.sum()))
+        self.n = self.n_docs
+
+    def batch(self, idx: np.ndarray) -> dict:
+        t = self.tokens[idx]
+        return {"tokens": t[:, :-1], "labels": t[:, 1:]}
+
+    def features(self) -> np.ndarray:
+        f = np.zeros((self.n, 64), np.float32)
+        for i, seq in enumerate(self.tokens):
+            np.add.at(f[i], seq % 64, 1.0)
+        f /= np.maximum(np.linalg.norm(f, axis=1, keepdims=True), 1e-6)
+        return f

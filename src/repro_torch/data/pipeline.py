@@ -15,18 +15,33 @@ gathers each batch on the device.  The index stream is the same function
 of (seed, epoch, step) as ``epoch()``'s, so the loop and fused paths
 consume identical batches.
 
-The reference's background prefetch thread is not ported (ROADMAP A6): the
-session's host batches are cheap slices, and its fused path assembles none.
+Background prefetch (``prefetch=True``, the default): a one-slot daemon
+thread assembles the next host batches (a queue of 2) while the consumer
+runs the current step; a worker exception crosses the queue and is re-raised
+in the consumer instead of silently truncating the epoch, and abandoning an
+epoch early (break / ``close()`` on the iterator) tells the worker to stop,
+so it exits within its put timeout instead of staying blocked on a full
+queue with batch arrays pinned.  ``device_epoch`` assembles no host batch
+and never starts the thread.
 """
 from __future__ import annotations
 
 import dataclasses
+import queue
+import threading
 from typing import Any, Callable, Iterator
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+class _WorkerError:
+    """Wrapper carrying a prefetch-worker exception across the queue."""
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
 
 
 @dataclasses.dataclass
@@ -36,6 +51,7 @@ class Pipeline:
     batch_size: int
     seed: int = 0
     drop_remainder: bool = True
+    prefetch: bool = True
     weight_key: str | None = "weights"         # None disables weight injection
     # Column store enabling the device-resident path: same-length arrays the
     # batches are gathered from (``batch[k] = arrays[k][idx]``).  Providing
@@ -126,17 +142,70 @@ class Pipeline:
     def epoch(self, epoch: int, *, start_step: int = 0) -> Iterator[dict]:
         """Yield batches; ``start_step`` skips ahead for restart replay."""
         idx, weights = self._permuted(epoch)
-        for s in range(start_step, self.steps_per_epoch(epoch)):
-            lo = s * self.batch_size
-            sel = idx[lo : lo + self.batch_size]
-            w = weights[lo : lo + self.batch_size]
-            if len(sel) < self.batch_size:
-                if self.drop_remainder:
-                    return
-                pad = self.batch_size - len(sel)
-                sel = np.pad(sel, (0, pad), mode="wrap")
-                w = np.pad(w, (0, pad), mode="wrap")
-            b = self.make_batch(sel)
-            if self.weight_key and self.weight_key not in b:
-                b[self.weight_key] = w.copy()
-            yield b
+        n_steps = self.steps_per_epoch(epoch)
+
+        def gen():
+            for s in range(start_step, n_steps):
+                lo = s * self.batch_size
+                sel = idx[lo : lo + self.batch_size]
+                w = weights[lo : lo + self.batch_size]
+                if len(sel) < self.batch_size:
+                    if self.drop_remainder:
+                        return
+                    pad = self.batch_size - len(sel)
+                    sel = np.pad(sel, (0, pad), mode="wrap")
+                    w = np.pad(w, (0, pad), mode="wrap")
+                b = self.make_batch(sel)
+                if self.weight_key and self.weight_key not in b:
+                    b[self.weight_key] = w.copy()
+                yield b
+
+        if not self.prefetch:
+            yield from gen()
+            return
+        q: queue.Queue = queue.Queue(maxsize=2)
+        done = object()
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            """Enqueue unless the consumer has gone away; the timeout bounds
+            how long an abandoned worker can stay blocked on a full queue."""
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            try:
+                for b in gen():
+                    if not put(b):
+                        return
+            except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
+                put(_WorkerError(e))
+            else:
+                put(done)
+
+        t = threading.Thread(target=worker, daemon=True, name="pipeline-prefetch")
+        t.start()
+        try:
+            while True:
+                b = q.get()
+                if b is done:
+                    break
+                if isinstance(b, _WorkerError):
+                    raise b.exc
+                yield b
+        finally:
+            # on exhaustion and when the consumer stops early (generator
+            # close): release the worker and reap it, so no thread is left
+            # pinning batch arrays behind a full queue
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)

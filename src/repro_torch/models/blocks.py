@@ -1,11 +1,11 @@
-"""Transformer/SSM blocks: the port of ``repro/models/blocks.py``, forward
-only.
+"""Transformer/SSM blocks: the port of ``repro/models/blocks.py``.
 
 A *block* is a pre-norm mixer (+ residual) then a pre-norm FFN
-(+ residual).  Its weights live in an ``nn.Module`` whose parameter names
-are the reference's (``norm1``, ``mixer.wq``, ``ffn.w_gate`` …), so the
-reference's params carry over one for one.  Every block owns a cache slot:
-a ``KVCache`` for attention, the SSM state for Mamba, ``None`` otherwise.
+(+ residual).  Its weights are a dict of the reference's names (``norm1``,
+``mixer.wq``, ``ffn.w_gate`` …), so the reference's params carry over one
+for one; serving and training read the same tensors, and gradients flow to
+those that require them.  Every block owns a cache slot: a ``KVCache`` for
+attention, the SSM state for Mamba, ``None`` otherwise.
 
 Ported mixers: ``attn`` and ``mamba``; FFNs: ``dense``, ``moe`` and
 ``none``.  Cross-attention (``xattn``), the encoder's ``attn_nc``, mLSTM
@@ -16,7 +16,6 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
@@ -34,26 +33,6 @@ _NOT_PORTED = {
 }
 
 
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
-
-
-class Block(nn.Module):
-    """One block's weights: ``norm1``, ``mixer`` and, unless the FFN is
-    ``none``, ``norm2`` and ``ffn`` (parameter dicts of the reference's
-    names)."""
-
-    def __init__(self, mixer: str, ffn: str, params: dict):
-        super().__init__()
-        check_block_kinds(mixer, ffn)
-        self.mixer_kind, self.ffn_kind = mixer, ffn
-        self.norm1 = _frozen(params["norm1"])
-        self.mixer = nn.ParameterDict({k: _frozen(v) for k, v in params["mixer"].items()})
-        if ffn != "none":
-            self.norm2 = _frozen(params["norm2"])
-            self.ffn = nn.ParameterDict({k: _frozen(v) for k, v in params["ffn"].items()})
-
-
 def check_block_kinds(mixer: str, ffn: str) -> None:
     if mixer in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[mixer])
@@ -63,7 +42,9 @@ def check_block_kinds(mixer: str, ffn: str) -> None:
         raise ValueError(f"unknown ffn {ffn!r}")
 
 
-def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dtype) -> Block:
+def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dtype) -> dict:
+    """One block's weights: ``norm1``, ``mixer`` and, unless the FFN is
+    ``none``, ``norm2`` and ``ffn``."""
     check_block_kinds(mixer, ffn)
     dev = gen.device
     p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)}
@@ -77,7 +58,7 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dty
         p["norm2"] = torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)
         p["ffn"] = (init_mlp(gen, cfg.d_model, cfg.d_ff, dtype) if ffn == "dense"
                     else moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, dtype))
-    return Block(mixer, ffn, p)
+    return p
 
 
 def init_block_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int, dtype,
@@ -95,28 +76,31 @@ def init_block_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int, d
 
 
 def apply_block(
-    block: Block,
+    p: dict,
     x: torch.Tensor,
     *,
     cfg: ModelConfig,
+    kinds: tuple[str, str],
     positions: torch.Tensor,
     cache: Cache,
     mode: str,
 ) -> tuple[torch.Tensor, Cache]:
-    """One block over x (B, S, D).  Returns (x, the block's new cache):
-    prefill fills ``cache`` (the template) in place, decode updates it."""
-    mixer, ffn = block.mixer_kind, block.ffn_kind
-    h = rms_norm(x, block.norm1, cfg.norm_eps)
+    """One block (weights ``p``, (mixer, ffn) ``kinds``) over x (B, S, D).
+    Returns (x, the block's new cache): prefill fills ``cache`` (the
+    template) in place, decode updates it."""
+    mixer, ffn = kinds
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache: Cache = None
     if mixer == "attn":
         y, kvc = attention(
-            block.mixer, h, positions,
+            p["mixer"], h, positions,
             causal=True,
             impl=cfg.attention_impl,
             rope_theta=cfg.rope_theta,
             use_rope=cfg.use_rope,
             cache=cache if mode == "decode" else None,
             mode=mode,
+            block=cfg.attn_block,
         )
         if mode == "decode":
             new_cache = kvc
@@ -124,7 +108,7 @@ def apply_block(
             new_cache = _fit_cache(kvc, cache)
     else:
         # decode is the sequential one-token update whatever the impl
-        y, st = mamba(block.mixer, h, chunk=cfg.ssm_chunk,
+        y, st = mamba(p["mixer"], h, chunk=cfg.ssm_chunk,
                       state=cache if mode == "decode" else None, mode=mode,
                       impl=cfg.ssm_impl if mode != "decode" else "chunked")
         if mode in ("prefill", "decode"):
@@ -132,10 +116,10 @@ def apply_block(
     x = x + y
 
     if ffn == "dense":
-        x = x + mlp(block.ffn, rms_norm(x, block.norm2, cfg.norm_eps))
+        x = x + mlp(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
     elif ffn == "moe":
         x = x + moe_mod.moe(
-            block.ffn, rms_norm(x, block.norm2, cfg.norm_eps),
+            p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
             top_k=cfg.experts_per_token,
             capacity_factor=cfg.capacity_factor,
             group_size=cfg.moe_group_size,

@@ -1,10 +1,15 @@
-"""Primitive layers, forward only: norms, dense, embedding, rotary embedding.
+"""Primitive layers: norms, dense, embedding, rotary embedding.
 
 The port of ``repro/models/layers.py``.  Weight layouts are the reference's
 (``(d_in, d_out)`` for a dense weight, ``(vocab, d_model)`` for the table),
 so weights carry over from the reference one for one.  A bf16 matrix
 product here accumulates in f32 and rounds its output once to bf16 — the
 reference's ``preferred_element_type`` contract — in one PyTorch call.
+
+``rms_norm`` and ``unembed`` carry the reference's custom VJPs as
+``torch.autograd.Function``s: RMSNorm saves only its storage-dtype input and
+recomputes the f32 statistics in backward; the unembedding casts its
+cotangent to the storage dtype before both backward products.
 """
 from __future__ import annotations
 
@@ -12,11 +17,36 @@ import torch
 import torch.nn.functional as F
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm with f32 statistics and storage-dtype I/O."""
+def _rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     return ((x32 * torch.rsqrt(var + eps)) * scale.float()).to(x.dtype)
+
+
+class _RMSNorm(torch.autograd.Function):
+    """The reference's ``_rms_norm_fwd`` / ``_rms_norm_bwd``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_norm_fwd(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        x32, g32 = x.float(), g.float()
+        inv = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + ctx.eps)
+        xhat = x32 * inv
+        gs = g32 * scale.float()
+        dx = inv * (gs - xhat * torch.mean(gs * xhat, dim=-1, keepdim=True))
+        dscale = torch.sum((g32 * xhat).reshape(-1, x.shape[-1]), dim=0).to(scale.dtype)
+        return dx.to(x.dtype), dscale, None
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with f32 statistics and storage-dtype I/O."""
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
@@ -53,10 +83,28 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+class _Unembed(torch.autograd.Function):
+    """The reference's ``_unembed_fwd`` / ``_unembed_bwd``: the cotangent in
+    the storage dtype, f32 accumulation inside both products."""
+
+    @staticmethod
+    def forward(ctx, x, table):
+        ctx.save_for_backward(x, table)
+        return x @ table.to(x.dtype).T
+
+    @staticmethod
+    def backward(ctx, g):
+        x, table = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = (g @ table.to(x.dtype)).to(x.dtype)
+        dtable = (g.reshape(-1, g.shape[-1]).T @ x.reshape(-1, x.shape[-1])).to(table.dtype)
+        return dx, dtable
+
+
 def unembed(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Tied unembedding ``(..., D) @ (V, D)ᵀ -> (..., V)``: f32 accumulation,
     logits in the activation dtype."""
-    return x @ table.to(x.dtype).T
+    return _Unembed.apply(x, table)
 
 
 def rope_frequencies(head_dim: int, theta: float = 10000.0, device=None) -> torch.Tensor:

@@ -59,6 +59,11 @@ def mamba(params, x: torch.Tensor, *, chunk: int = 256, state: torch.Tensor | No
     """
     if impl not in ("chunked", "pallas"):
         raise ValueError(f"unknown ssm impl {impl!r}")
+    if impl == "pallas" and mode != "decode" and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad for t in params.values())):
+        raise NotImplementedError(
+            "ssm_impl='pallas' has no backward (the CUDA SSD chunk kernel is forward only); "
+            "train with 'chunked'")
     B, S, D = x.shape
     d_inner = params["w_in"].shape[-1] // 2
     n_heads = params["w_dt"].shape[-1]

@@ -200,6 +200,7 @@ def _classifier_step_fn(sub_steps: int):
         state.step.add_(1)
         return state, {"loss": loss.detach()}
 
+    train_step.updates_in_place = True   # the guard keeps the pre-step state
     return train_step
 
 

@@ -33,11 +33,11 @@ class Request:
 
 
 class ServeEngine:
-    def __init__(self, model: lm.LM, cfg: ModelConfig, *, max_batch: int = 4,
+    def __init__(self, model: dict, cfg: ModelConfig, *, max_batch: int = 4,
                  max_len: int = 128, eos_id: int | None = None):
         self.model = model
         self.cfg = cfg
-        self.device = model.embed.device
+        self.device = model["embed"].device
         self.max_batch = max_batch
         self.max_len = max_len
         self.eos_id = eos_id

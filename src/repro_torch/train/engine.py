@@ -40,7 +40,16 @@ set: buffers other than the cached graphs' drop those graphs.
 
 On the CPU (the device of the index block) the same ops run as an eager
 loop over the ``S`` steps.  On the card nothing falls back: a failed capture
-or replay raises.  The divergence guard is not ported (ROADMAP A9b).
+or replay raises.
+
+With a ``guard`` (``repro_torch.health.GuardPolicy``) the divergence check
+is fused into every step of the segment, inside the graph: a step whose
+loss goes non-finite (or spikes past ``max_loss``) keeps its pre-step
+state, its step counter advances, and its ``guard_bad`` flag rides the
+stacked metrics — no host read on the healthy path.  A step that updates
+its state in place (``updates_in_place``) has the pre-step state copied
+until its flag is known, one state a step inside the graph's pool; a step
+that returns a new state costs no copy (``health.guard``).
 """
 from __future__ import annotations
 
@@ -50,6 +59,9 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch import tree as T
+from repro_torch.health.guard import GuardPolicy, guarded_step
+
 TrainStep = Callable[[Any, dict], tuple[Any, dict]]
 
 #: CUDA graphs captured and replayed by every engine in this process
@@ -57,36 +69,8 @@ captures = 0
 replays = 0
 
 
-def _refuse_guard(guard: Any) -> None:
-    if guard is not None:
-        raise NotImplementedError(
-            "the in-step divergence guard is not ported yet (ROADMAP A9b)")
-
-
-def _leaves(tree: Any) -> list[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _leaves(v)]
-    if isinstance(tree, (tuple, list)):
-        return [leaf for v in tree for leaf in _leaves(v)]
-    raise TypeError(f"a captured state holds tensors only, not {type(tree).__name__}")
-
-
-def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Any) -> Any:
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(fn, v) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_map(fn, v) for v in tree)
-    raise TypeError(f"a captured state holds tensors only, not {type(tree).__name__}")
-
-
 def _signature(tree: Any) -> tuple:
-    return tuple((tuple(t.shape), t.dtype) for t in _leaves(tree))
+    return tuple((tuple(t.shape), t.dtype) for t in T.leaves(tree))
 
 
 def _steps(step: TrainStep, state: Any, batches: list[dict]) -> tuple[Any, dict]:
@@ -126,7 +110,7 @@ class _Graph:
 
     def __init__(self, body: Callable, state: Any, inputs: dict, buffers: dict):
         global captures
-        self.state = _map(lambda t: t.detach().clone(), state)
+        self.state = T.map(lambda t: t.detach().clone(), state)
         self.inputs = {k: v.clone() for k, v in inputs.items()}
         self.buffers = buffers  # read in place by every replay: kept alive here
         # warm-up on a side stream (library handles, autograd, the allocator),
@@ -151,28 +135,29 @@ class _Graph:
     def __call__(self, state: Any, inputs: dict) -> tuple[Any, dict]:
         global replays
         with torch.no_grad():
-            for dst, src in zip(_leaves(self.state), _leaves(state)):
+            for dst, src in zip(T.leaves(self.state), T.leaves(state)):
                 dst.copy_(src)
             for k, v in inputs.items():
                 self.inputs[k].copy_(v)
             self.graph.replay()
-            for dst, src in zip(_leaves(state), _leaves(self.out)):
+            for dst, src in zip(T.leaves(state), T.leaves(self.out)):
                 dst.copy_(src)
         replays += 1
         return state, {k: v.clone() for k, v in self.metrics.items()}
 
 
-def make_superstep(train_step: TrainStep, *, guard: Any = None):
+def make_superstep(train_step: TrainStep, *, guard: GuardPolicy | None = None):
     """Fuse a stack of pre-assembled batches into one segment.
 
     Returns ``superstep(state, batches) -> (state, stacked_metrics)`` where
     every tensor of ``batches`` carries a leading step axis ``(S, ...)``; on
     the card one graph per (batch shapes, state shapes), updating the
-    caller's state in place (see the module docstring).
+    caller's state in place (see the module docstring).  A ``guard`` fuses
+    the divergence check into every step.
     """
-    _refuse_guard(guard)
+    step = guarded_step(train_step, guard) if guard is not None else train_step
     graphs: dict[tuple, _Graph] = {}
-    body = functools.partial(_superstep_body, train_step)
+    body = functools.partial(_superstep_body, step)
 
     def superstep(state: Any, batches: dict) -> tuple[Any, dict]:
         if next(iter(batches.values())).device.type != "cuda":
@@ -190,10 +175,12 @@ def make_superstep(train_step: TrainStep, *, guard: Any = None):
 class _EpochEngine:
     """``engine(state, buffers, idx, w) -> (state, stacked_metrics)``."""
 
-    def __init__(self, train_step: TrainStep, weight_key: str | None):
+    def __init__(self, train_step: TrainStep, weight_key: str | None,
+                 guard: GuardPolicy | None = None):
         # weak: the engine is the cache's value and must not keep its key alive
         self._step = weakref.ref(train_step)
         self.weight_key = weight_key
+        self.guard = guard
         self.graphs: dict[tuple, _Graph] = {}
         self._buffers: dict | None = None
 
@@ -201,6 +188,8 @@ class _EpochEngine:
                  w: torch.Tensor) -> tuple[Any, dict]:
         step = self._step()
         assert step is not None, "train_step was garbage-collected"
+        if self.guard is not None:
+            step = guarded_step(step, self.guard)
         body = functools.partial(_epoch_body, step, self.weight_key)
         inputs = {"idx": idx, "w": w}
         if idx.device.type != "cuda":
@@ -216,13 +205,14 @@ class _EpochEngine:
         return graph(state, inputs)
 
 
-#: train_step -> {weight_key: engine}; weakly keyed so per-instance steps do
-#: not pin their engines (and their graphs) for the life of the process
+#: train_step -> {weight_key or (weight_key, guard): engine}; weakly keyed
+#: so per-instance steps do not pin their engines (and their graphs) for the
+#: life of the process
 _ENGINE_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
 
 
 def epoch_engine(train_step: TrainStep, *, weight_key: str | None = "weights",
-                 guard: Any = None) -> _EpochEngine:
+                 guard: GuardPolicy | None = None) -> _EpochEngine:
     """Superstep over device-resident data, shared per (step, weight key).
 
     * ``buffers`` — dict of resident column tensors (``{"x": (n, d), "y":
@@ -233,13 +223,15 @@ def epoch_engine(train_step: TrainStep, *, weight_key: str | None = "weights",
     Each step gathers its batch from the buffers (``{k: buf[idx[t]]}``),
     injects ``w[t]`` under ``weight_key`` unless a buffer already claims
     that column (the host pipeline's "don't clobber" rule), and applies
-    ``train_step``.
+    ``train_step``.  A ``guard`` fuses the divergence check into every
+    step; ``GuardPolicy`` is hashable, so guarded and unguarded engines
+    coexist in the cache.
     """
-    _refuse_guard(guard)
     per_step = _ENGINE_CACHE.setdefault(train_step, {})
-    engine = per_step.get(weight_key)
+    key = weight_key if guard is None else (weight_key, guard)
+    engine = per_step.get(key)
     if engine is None:
-        engine = per_step[weight_key] = _EpochEngine(train_step, weight_key)
+        engine = per_step[key] = _EpochEngine(train_step, weight_key, guard)
     return engine
 
 
@@ -249,8 +241,7 @@ def segment_length(superstep: int, global_step: int, remaining: int,
 
     A segment ends at whichever comes first: the superstep size, the end of
     the epoch, or the next ``checkpoint_every`` multiple (checkpoints need
-    the actual state, which only exists between segments; the port's
-    trainer passes 0 until checkpoints land, ROADMAP A10).  Logging needs
+    the actual state, which only exists between segments).  Logging needs
     no boundary — per-step metrics come back stacked.
     """
     if superstep < 1:

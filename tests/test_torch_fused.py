@@ -230,8 +230,8 @@ def test_fused_falls_back_without_column_store(data, params_np):
 
 def test_engine_updates_in_place_and_is_cached(data, params_np):
     """The returned state is the caller's (updated in place); the engine is
-    shared per (step, weight key); make_superstep equals the engine on the
-    same batches; the divergence guard refuses."""
+    shared per (step, weight key, guard); make_superstep equals the engine
+    on the same batches; the guarded engine equals it on healthy data."""
     feats, labs = data
     step = tsession._classifier_step_fn(SUB_STEPS)
     engine = epoch_engine(step)
@@ -250,10 +250,20 @@ def test_engine_updates_in_place_and_is_cached(data, params_np):
                                               "weights": w})
     assert torch.equal(m2["loss"], metrics["loss"])
     assert all(torch.equal(s2.params[k], out.params[k]) for k in out.params)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        epoch_engine(step, guard=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        make_superstep(step, guard=object())
+    # the guarded engine: its own cache entry; on healthy data the same
+    # state and losses, and a zero skip flag per step
+    from repro_torch.health import GUARD_KEY, GuardPolicy
+
+    guarded = epoch_engine(step, guard=GuardPolicy())
+    assert guarded is not engine and epoch_engine(step, guard=GuardPolicy()) is guarded
+    s3, m3 = guarded(_state(params_np, 10), bufs, idx, w)
+    assert torch.equal(m3["loss"], metrics["loss"]) and m3[GUARD_KEY].tolist() == [0.0, 0.0]
+    assert all(torch.equal(s3.params[k], out.params[k]) for k in out.params)
+    assert int(s3.step) == 2
+    s4, m4 = make_superstep(step, guard=GuardPolicy())(
+        _state(params_np, 10), {"x": bufs["x"][idx], "y": bufs["y"][idx], "weights": w})
+    assert torch.equal(m4["loss"], metrics["loss"]) and m4[GUARD_KEY].tolist() == [0.0, 0.0]
+    assert all(torch.equal(s4.params[k], out.params[k]) for k in out.params)
     assert engine_mod.captures == engine_mod.replays == 0, "no graph on the CPU"
 
 

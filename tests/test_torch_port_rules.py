@@ -103,26 +103,15 @@ def test_unported_knobs_raise(knob, value):
             MiloPreprocessor(device="cpu", **{knob: value})
 
 
-@pytest.mark.parametrize("case", ["attention_chunked", "mlstm", "slstm", "xattn", "attn_nc",
-                                  "encdec"])
+@pytest.mark.parametrize("case", ["mlstm", "slstm", "xattn", "attn_nc", "encdec"])
 def test_unported_lm_paths_raise(case):
     """Every model path the port does not have yet refuses, naming ROADMAP,
     instead of quietly running something else."""
-    import dataclasses
-
     from repro_torch.configs import registry
-    from repro_torch.models import attention, blocks, lm
+    from repro_torch.models import blocks, lm
 
     gen = torch.Generator().manual_seed(0)
-    if case == "attention_chunked":
-        cfg = dataclasses.replace(registry.smoke("yi-6b"), attention_impl="chunked")
-        model = lm.init_lm(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.forward(model, cfg, torch.zeros((1, 4), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            attention.attention(model.blocks[0].mixer, torch.zeros((1, 4, cfg.d_model)),
-                                torch.arange(4)[None], impl="chunked")
-    elif case == "encdec":
+    if case == "encdec":
         cfg = registry.smoke("whisper-small")
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             lm.init_lm(cfg, device="cpu")
@@ -137,6 +126,24 @@ def test_unported_lm_paths_raise(case):
         if case != "attn_nc":
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 lm.init_lm(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("knob", ["trainer_heartbeat_dir", "checkpoint_process_count"])
+def test_unported_training_knobs_raise(knob, tmp_path):
+    """The multi-host pieces of training (liveness heartbeats, the two-phase
+    checkpoint commit) refuse, naming ROADMAP A11."""
+    from repro_torch.checkpoint.checkpointer import CheckpointManager
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        if knob == "trainer_heartbeat_dir":
+            sel = build_selector("random", n=8, k=4, seed=0)
+            Trainer(lambda s, b: (s, {}), Pipeline(None, sel, 2, arrays={"x": np.zeros(8)},
+                                                   device="cpu"),
+                    TrainerConfig(epochs=1, heartbeat_dir=str(tmp_path)))
+        else:
+            CheckpointManager(str(tmp_path), process_count=2)
 
 
 def test_lm_entry_points_default_to_the_card():
