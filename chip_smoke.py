@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-18 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-19 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -150,13 +150,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
     parameters go non-finite), ``rollback`` replaying to ``skip_step``'s
     state.  Checkpoints go under the git-ignored ``build/phase18/`` and are
     removed at the end of each sub-phase.
+19. selection as a service: (a) ``MiloServer(use_pallas=True,
+    fused_training=True, firewall="quarantine", num_workers=2)`` over a store
+    under the git-ignored ``build/phase19/`` on phase 5's training rows with
+    32 of them poisoned (8 NaN, 8 inf, 16 zero, fixed indices): ``warm`` with
+    phase 15's search space (the one artifact build, B1), 3 ``MiloClient``
+    tenants tuning at once (max_budget 9, seeds 100-102), every row from
+    memory, then a repeat request with no new graph capture, no kernel
+    library build or load, no B1 launch and no new buffer placement; the
+    quarantined rows equal the planted ones and none is selected; tenant 0
+    bit-equal to a cold ``MiloSession`` (preprocess and tune), tenants 1-2 to
+    a serial replay on one worker (the artifact from disk), memory released
+    after ``shutdown``; (b) at ``examples/serve_selection.py``'s size, a
+    transient build failure retried once, a deterministic one opening the
+    breaker (the cached key still serves, ``health()`` degraded, then ok
+    after the cooldown's probe), a kernel wrapper's refusal neither retried
+    nor degraded around, a stale heartbeat degrading ``health()``; (c) a
+    degenerate ``milo`` falling back to ``adaptive_random`` with the hop in
+    the plan's provenance, and B1's refusal in a primary propagating; (d)
+    landmark facility location per class (k 500, L 2,000) and, on class 0,
+    at least 0.9 of exact greedy facility location's value on its Gram.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
 phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
 dense ``fl_gains`` kernel, 12 for flash attention, 13 for the SSD chunk; B1-B3
 also carry their phase 16 launches and errors, B4 its phase 17 launches and
-its time, bound and error at CRAIG's shape),
+its time, bound and error at CRAIG's shape, B1 its phase 19 launches),
 the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -3254,10 +3274,376 @@ def phase_lm_training(dev, x, y, md, *, rehearsal: bool, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: selection as a service — MiloServer (artifact store, shared
+# buffers, breaker, retries, health), the firewall, fallback chains, fault
+# injection, and landmark (feature-based) selection
+# ---------------------------------------------------------------------------
+
+#: phase 19's sizes at full size and in the CPU rehearsal
+SERVE_SIZES = {"full": dict(max_budget=9, k_landmark=500, example=(1200, 6, 24)),
+               "rehearsal": dict(max_budget=3, k_landmark=20, example=(240, 3, 8))}
+
+
+def _planted(m: int) -> dict[str, list[int]]:
+    """32 fixed rows of the training set: 8 NaN, 8 inf, 16 zero."""
+    rows = np.random.default_rng(19).choice(m, 32, replace=False)
+    return {"nan_rows": sorted(rows[:8].tolist()), "inf_rows": sorted(rows[8:16].tolist()),
+            "zero_rows": sorted(rows[16:].tolist())}
+
+
+def _launch_state() -> dict:
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.similarity import similarity as sk
+    from repro_torch.train import engine as engine_mod
+
+    return {"captures": engine_mod.captures, "builds": _build.builds, "loads": _build.loads,
+            "similarity": sk.launches}
+
+
+def phase_server(dev, x, y, vx, vy, *, sizes: dict, smi: str) -> dict:
+    """19a: ``MiloServer`` on phase 5's data, 32 rows poisoned and quarantined:
+    warm, 3 tenants tuning at once, a repeat request; against a cold session
+    and a serial replay on one worker."""
+    import shutil
+
+    from repro_torch.selection import MiloSession, MiloSessionConfig
+    from repro_torch.serve import MiloClient, MiloServer, artifact_request_config
+    from repro_torch.testing.faults import poison_features
+
+    budget = sizes["max_budget"]
+    log(f"== phase 19a: MiloServer on {x.shape} (firewall quarantine, 2 workers, 3 tenants, "
+        f"max_budget {budget})")
+    planted = _planted(len(x))
+    bad = sorted(sum(planted.values(), []))
+    log(f"planted rows: {json.dumps(planted)}")
+    xp = poison_features(x, **planted)
+    cfg = MiloSessionConfig(use_pallas=True, eval_every_epochs=10, fused_training=True,
+                            firewall="quarantine")
+    root = ROOT / "build" / "phase19" / "store"
+    shutil.rmtree(root.parent, ignore_errors=True)
+    before = _allocated_mib(dev)
+    held = _reset_peak(dev)
+    _reset_launches()
+    server = MiloServer(cfg, device=dev, store_root=str(root), num_workers=2).start()
+    t0 = time.perf_counter()
+    warm = server.warm(xp, y, val_x=vx, val_y=vy, space=TUNE_SPACE)
+    _sync(dev)
+    t_warm = time.perf_counter() - t0
+    warm_state = _launch_state()
+    assert server.store.builds == 1 and warm["tune_replayed"]
+    log(f"warm {t_warm:.3f} s: {warm['warmed_geometries']} geometries, B1 launches "
+        f"{warm_state['similarity']}, graph captures {warm_state['captures']}, kernel library "
+        f"builds {warm_state['builds']} and loads {warm_state['loads']} in this process so far")
+
+    clients = [MiloClient(server, tenant=f"t{i}") for i in range(3)]
+    t0 = time.perf_counter()
+    rids = [c.submit_tune(xp, y, vx, vy, TUNE_SPACE, max_budget=budget, eta=3, seed=100 + i)
+            for i, c in enumerate(clients)]
+    tenants = [server.result(r, timeout=900) for r in rids]
+    t_tenants = time.perf_counter() - t0
+    rows = [server.poll(r) for r in rids]
+    assert all(r["status"] == "done" and r["artifact_source"] == "memory" for r in rows), rows
+    assert server.store.builds == 1, server.store.stats()
+    per_request = [r["finished"] - r["started"] for r in rows]
+    after_tenants = _launch_state()
+    puts = server.buffers.put_count
+    log(f"3 tenants at once: {t_tenants:.3f} s, per request "
+        f"{', '.join(f'{s:.3f}' for s in per_request)} s, every row from memory; graph captures "
+        f"{after_tenants['captures'] - warm_state['captures']}, buffer placements {puts}")
+
+    t0 = time.perf_counter()
+    repeat = clients[0].tune(xp, y, vx, vy, TUNE_SPACE, max_budget=budget, eta=3, seed=100)
+    t_repeat = time.perf_counter() - t0
+    new = {k: v - after_tenants[k] for k, v in _launch_state().items()}
+    log(f"repeat request {t_repeat:.3f} s: new graph captures {new['captures']}, kernel library "
+        f"builds {new['builds']} and loads {new['loads']}, B1 launches {new['similarity']}, "
+        f"buffer placements {server.buffers.put_count - puts}")
+    assert new == {"captures": 0, "builds": 0, "loads": 0, "similarity": 0}, new
+    assert server.buffers.put_count == puts
+    assert repeat.trials == tenants[0].trials
+    peak = _peak_mib(dev, held)
+
+    req = artifact_request_config(cfg)
+    key = server.store.key_for(server.data_fingerprint(xp), req)
+    md, _, source = server.store.get_or_build(key, req, lambda: None)
+    assert source == "memory"
+    quarantined = md.config["data_health"]["quarantined_rows"]
+    assert quarantined == bad, (quarantined, bad)
+    assert not np.isin(md.sge_subsets, bad).any() and float(md.wre_probs[bad].sum()) == 0.0
+    assert md.config["firewall"] == "quarantine" and md.m == len(x)
+    log(f"quarantined rows = the 32 planted; none in the bank ({md.sge_subsets.shape}), "
+        f"WRE mass on them 0; health {server.health()['status']}")
+    stats = server.stats()
+    server.shutdown()
+    after = _allocated_mib(dev)
+    del server, clients, md
+    memory = _released("phase 19 server", dev, before, after)
+
+    t0 = time.perf_counter()
+    cold = MiloSession(cfg, device=dev)
+    cold.preprocess(xp, y)
+    cold_res = cold.tune(xp, y, vx, vy, TUNE_SPACE, max_budget=budget, eta=3, seed=100)
+    _sync(dev)
+    t_cold = time.perf_counter() - t0
+    del cold
+    assert (cold_res.best_config, cold_res.best_score) == (tenants[0].best_config,
+                                                           tenants[0].best_score)
+    assert cold_res.trials == tenants[0].trials
+    log(f"cold session (preprocess + tune) {t_cold:.3f} s: best config and score bit-equal to "
+        f"tenant 0's ({tenants[0].best_config}, {tenants[0].best_score}); the warm repeat "
+        f"request {t_cold / t_repeat:.1f}x faster (reported, not asserted)")
+    sources = []
+    with MiloServer(cfg, device=dev, store_root=str(root), num_workers=1) as serial:
+        for i in (1, 2):
+            rid = serial.submit("tune", features=xp, labels=y, val_x=vx, val_y=vy,
+                                space=TUNE_SPACE, max_budget=budget, eta=3, seed=100 + i)
+            again = serial.result(rid, timeout=900)
+            sources.append(serial.poll(rid)["artifact_source"])
+            assert again.trials == tenants[i].trials, f"tenant {i} differs from its serial replay"
+    assert sources == ["disk", "memory"], sources
+    log("tenants 1-2 bit-equal to a serial replay on one worker (artifact from disk)")
+    shutil.rmtree(root.parent, ignore_errors=True)
+    return {"warm_s": t_warm, "warmed_geometries": warm["warmed_geometries"],
+            "tenants_s": t_tenants, "per_request_s": per_request, "repeat_s": t_repeat,
+            "cold_s": t_cold, "cold_over_repeat": t_cold / t_repeat,
+            "b1_launches": warm_state["similarity"], "captures_warm": warm_state["captures"],
+            "captures_tenants": after_tenants["captures"] - warm_state["captures"],
+            "repeat_new": new, "buffer_puts": puts, "store": stats["store"],
+            "best": [(r.best_config, r.best_score) for r in tenants],
+            "peak_mib": peak, "memory": memory, "card": smi}
+
+
+def _example(sizes: dict):
+    from repro_torch.data.datasets import GaussianMixtureDataset
+
+    n, c, d = sizes["example"]
+    ds = GaussianMixtureDataset(n=n, n_classes=c, dim=d, seed=0)
+    tr, va, _ = ds.split()
+    return ds.x[tr], ds.y[tr], ds.x[va], ds.y[va]
+
+
+def _noncontiguous_refusal(dev):
+    """B1's wrapper handed a non-contiguous view: its refusal."""
+    from repro_torch.kernels.similarity import similarity as sk
+
+    z = torch.ones((64, 32), device=dev)[:, ::2]
+    sk.similarity_cuda(z, z)
+
+
+def phase_faults(dev, *, sizes: dict) -> dict:
+    """19b: faults and health on the card at the example's size."""
+    from repro_torch.distributed.multihost import HeartbeatMonitor, HeartbeatWriter
+    from repro_torch.health import CircuitBreaker, CircuitOpenError
+    from repro_torch.kernels import _build
+    from repro_torch.selection import session as S
+    from repro_torch.serve import MiloClient, MiloServer, RetryPolicy
+    from repro_torch.testing.faults import TransientFault, fail_nth_calls
+
+    x, y, _, _ = _example(sizes)
+    log(f"== phase 19b: faults and health on {x.shape}")
+    cfg = S.MiloSessionConfig(use_pallas=True)
+    orig = S.MiloSession.build_metadata
+    out = {}
+    try:
+        S.MiloSession.build_metadata = fail_nth_calls(orig, fail_on={1})
+        with MiloServer(cfg, device=dev, num_workers=1, retry_policy=RetryPolicy(
+                base_delay=0.01, retry_on=(TransientFault,))) as srv:
+            rid = srv.submit("preprocess", features=x, labels=y)
+            assert srv.result(rid, timeout=300)["source"] == "built"
+            snap = srv.poll(rid)
+            assert snap["attempts"] == 2 and snap["status"] == "done", snap
+            out["transient"] = {"attempts": snap["attempts"], "retries": srv.stats()["retries"]}
+        log(f"a transient build failure: retried once, attempts {snap['attempts']}")
+
+        now = [0.0]
+        br = CircuitBreaker(threshold=2, cooldown=30.0, clock=lambda: now[0])
+        with MiloServer(cfg, device=dev, num_workers=1, breaker=br) as srv:
+            S.MiloSession.build_metadata = orig
+            c = MiloClient(srv)
+            assert c.preprocess(x, y)["source"] == "built"
+            calls = [0]
+
+            def broken(self, *a, **kw):
+                calls[0] += 1
+                raise ValueError("deterministically broken build")
+
+            S.MiloSession.build_metadata = broken
+            for _ in range(2):
+                try:
+                    c.preprocess(x, y, force=True)
+                    raise AssertionError("the broken build succeeded")
+                except ValueError:
+                    pass
+            try:
+                c.preprocess(x, y, force=True)
+                raise AssertionError("the open breaker let a build through")
+            except CircuitOpenError:
+                pass
+            assert calls[0] == 2
+            assert c.preprocess(x, y)["source"] == "memory"
+            h_open = srv.health()
+            assert h_open["status"] == "degraded" and len(h_open["tripped_keys"]) == 1
+            S.MiloSession.build_metadata = orig
+            now[0] = 30.0
+            probe = c.preprocess(x, y, force=True)
+            h_closed = srv.health()
+            assert probe["source"] == "built" and probe["version"] == 2
+            assert h_closed["status"] == "ok", h_closed
+            out["breaker"] = {"builds_tried": calls[0], "open": h_open["status"],
+                              "after_reset": h_closed["status"]}
+        log("a deterministic build failure: the breaker opened after 2, the third failed fast, "
+            "the cached key served from memory, health degraded; after the cooldown one probe "
+            "build closed it and health read ok")
+
+        def kernel_fault(self, *a, **kw):
+            _noncontiguous_refusal(dev)
+
+        S.MiloSession.build_metadata = kernel_fault
+        br = CircuitBreaker(threshold=1, cooldown=1e9)
+        with MiloServer(cfg, device=dev, num_workers=1, breaker=br, retry_policy=RetryPolicy(
+                base_delay=0.0, retry_on=(RuntimeError, ValueError))) as srv:
+            rid = srv.submit("preprocess", features=x, labels=y)
+            try:
+                srv.result(rid, timeout=300)
+                raise AssertionError("the refused kernel launch succeeded")
+            except _build.KernelInputError as e:
+                err = str(e)
+            snap = srv.poll(rid)
+            assert snap["attempts"] == 1 and srv.stats()["retries"] == 0, snap
+            assert len(srv.health()["tripped_keys"]) == 1
+            out["kernel_fault"] = {"attempts": snap["attempts"], "error": err}
+        log(f"a kernel wrapper's refusal ({err}): not retried (attempts 1) though retry_on names "
+            "ValueError, counted by the breaker")
+    finally:
+        S.MiloSession.build_metadata = orig
+
+    with tempfile.TemporaryDirectory() as hb:
+        now = time.time()
+        HeartbeatWriter(hb, 0).beat(step=1)
+        HeartbeatWriter(hb, 1, clock=lambda: now - 120.0).beat()
+        with MiloServer(cfg, device=dev, heartbeat_monitor=HeartbeatMonitor(
+                hb, timeout=60.0, expected=2)) as srv:
+            h = srv.health()
+        assert h["status"] == "degraded" and h["hosts"]["stale"] == [1], h
+        out["heartbeat"] = h["hosts"]
+    log(f"one stale beacon (host 1, {h['hosts']['ages']['1']:.0f} s): health degraded")
+    return out
+
+
+def phase_fallback(dev, *, sizes: dict) -> dict:
+    """19c: a degenerate primary falls back to ``adaptive_random``; a kernel
+    wrapper's refusal in the primary propagates."""
+    from repro_torch.core.metadata import MiloMetadata
+    from repro_torch.health import FallbackSelector
+    from repro_torch.kernels import _build
+    from repro_torch.selection import MiloSession
+
+    x, y, vx, vy = _example(sizes)
+    log(f"== phase 19c: selector fallback on {x.shape}")
+    session = MiloSession(use_pallas=True, total_epochs=6, lr=0.01,
+                          selector_fallback=("adaptive_random",), device=dev)
+    md = session.preprocess(x, y)
+    # a WRE distribution with 3 rows of mass: the draw of k rows is degenerate
+    probs = np.zeros_like(md.wre_probs)
+    probs[:3] = 1.0 / 3
+    session.adopt_metadata(MiloMetadata(md.sge_subsets, probs, md.wre_importance,
+                                        md.class_labels, md.class_budgets, dict(md.config)))
+    sel = session.selector(n=len(x))
+    plans = [sel.plan(e) for e in range(6)]
+    assert sel.active_name == "adaptive_random", sel.events
+    last = plans[-1]
+    assert last.provenance["fallback_from"] == "milo"
+    assert last.provenance["fallback_selector"] == "adaptive_random"
+    assert sel.events[0]["stage"] == "plan" and "nonzero" in sel.events[0]["error"]
+    report = session.train(x, y, test_x=vx, test_y=vy)
+    log(f"milo's WRE draw over 3 rows of mass fell back at epoch "
+        f"{next(p.epoch for p in plans if 'fallback_from' in p.provenance)} to adaptive_random: "
+        f"{sel.events[0]['error']}; training on the chain: accuracy {report.final_acc:.4f}")
+
+    def refusing():
+        class Primary:
+            def plan(self, epoch):
+                _noncontiguous_refusal(dev)
+        return Primary()
+
+    fb = FallbackSelector([("milo", refusing), ("adaptive_random",
+                                                lambda: session.selector("adaptive_random",
+                                                                         n=len(x)))])
+    try:
+        fb.plan(0)
+        raise AssertionError("the refusal was degraded around")
+    except _build.KernelInputError as e:
+        err = str(e)
+    assert fb.events == [] and fb.active_name == "milo"
+    log(f"B1's refusal in the primary propagated ({err}); no fallback event")
+    return {"fallback_events": sel.events, "acc": report.final_acc, "refusal": err}
+
+
+def phase_landmarks(dev, x, y, *, sizes: dict, smi: str) -> dict:
+    """19d: landmark facility location per class of phase 5's data; class 0
+    against exact greedy facility location on its Gram."""
+    from repro_torch.core.feature_submodular import default_landmarks, feature_greedy_select
+    from repro_torch.core.greedy import greedy
+    from repro_torch.core.similarity import gram_matrix
+    from repro_torch.core.submodular import facility_location
+
+    k = sizes["k_landmark"]
+    log(f"== phase 19d: landmark facility location per class, k {k}")
+    held = _reset_peak(dev)
+    times, sel0 = [], None
+    for c in np.unique(y):
+        z = x[y == c]
+        _sync(dev)
+        t0 = time.perf_counter()
+        sel = feature_greedy_select(z, k, seed=int(c), device=dev)
+        idx = sel.indices.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        assert len(np.unique(idx)) == k and idx.min() >= 0 and idx.max() < len(z)
+        assert tuple(sel.phi.shape) == (len(z), default_landmarks(len(z), k))
+        if c == 0:
+            sel0 = idx
+        del sel
+    peak = _peak_mib(dev, held)
+    z0 = torch.as_tensor(x[y == 0], device=dev)
+    K = gram_matrix(z0)
+    t0 = time.perf_counter()
+    exact = greedy(facility_location, K, k).indices
+    _sync(dev)
+    t_exact = time.perf_counter() - t0
+    masks = {}
+    for name, idx in (("exact", exact), ("landmark", torch.as_tensor(sel0, device=dev))):
+        m = torch.zeros(len(z0), dtype=torch.bool, device=dev)
+        m[idx] = True
+        masks[name] = float(facility_location.evaluate(m, K))
+    ratio = masks["landmark"] / masks["exact"]
+    del K, z0
+    log(f"per class (m ~{int(np.mean(np.bincount(y)))}, L {default_landmarks(int((y == 0).sum()), k)}): "
+        f"{', '.join(f'{t:.3f}' for t in times)} s; {_peak_text(peak, held)}; class 0: exact FL "
+        f"{masks['exact']:.3f} (greedy {t_exact:.3f} s), landmark FL {masks['landmark']:.3f}, ratio "
+        f"{ratio:.4f} (>= 0.9 asserted)")
+    assert ratio >= 0.9, ratio
+    return {"class_s": times, "peak_mib": peak, "exact_fl": masks["exact"],
+            "landmark_fl": masks["landmark"], "ratio": ratio, "exact_greedy_s": t_exact}
+
+
+def phase_selection_service(dev, x, y, vx, vy, *, rehearsal: bool, smi: str) -> dict:
+    """Phase 19."""
+    sizes = SERVE_SIZES["rehearsal" if rehearsal else "full"]
+    t0 = time.perf_counter()
+    out = {"19a": phase_server(dev, x, y, vx, vy, sizes=sizes, smi=smi),
+           "19b": phase_faults(dev, sizes=sizes),
+           "19c": phase_fallback(dev, sizes=sizes),
+           "19d": phase_landmarks(dev, x, y, sizes=sizes, smi=smi)}
+    out["seconds"] = time.perf_counter() - t0
+    log("phase 19 summary: " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-18 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-19 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -3287,6 +3673,8 @@ def main() -> int:
                         smi="cpu (rehearsal)", sizes=BASELINE_SIZES["rehearsal"], epochs=12)
         phase_lm_training(dev, main_run["x"], main_run["y"], md, rehearsal=True,
                           smi="cpu (rehearsal)")
+        phase_selection_service(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
+                                rehearsal=True, smi="cpu (rehearsal)")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -3320,6 +3708,8 @@ def main() -> int:
                            sizes=BASELINE_SIZES["full"], epochs=12)
     phase_lm_training(dev, train_data["x"], train_data["y"], md, rehearsal=False,
                       smi=dev_info["smi"])
+    service = phase_selection_service(dev, *train_data.values(), rehearsal=False,
+                                      smi=dev_info["smi"])
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
         ("fl_gains_gram_free", "src/repro/kernels/fl_gains/fl_gains.py:178",
@@ -3423,6 +3813,9 @@ def main() -> int:
     # phase 17: B4 on CRAIG's path (one launch a greedy step), at its shape
     b4 = next(k for k in kernels if k["name"] == "fl_gains")
     b4["phase17"] = base["17d"]["b4"]
+    # phase 19: B1 on the selection-serving path (the server's artifact build
+    # and its warm-up's geometries)
+    sim["phase19"] = {"launches": service["19a"]["b1_launches"]}
     spills = [v for k in (sim["ptxas"], delta["instances"]["small_b"]["ptxas"]) for v in k.values()]
     spills.append(b2["instances"]["ring"]["ptxas"])
     log(f"similarity: {sim['ptxas']}, dynamic shared memory {sim['dynamic_smem_bytes']} bytes")

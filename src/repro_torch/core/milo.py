@@ -68,7 +68,6 @@ from repro_torch.device import resolve_device
 #: field -> (the only value the port accepts, ROADMAP item that ports the rest)
 UNPORTED_PREPROCESS = {
     "shard_selection": (False, "A11 (multi-device selection)"),
-    "firewall": (None, "A9b (health firewall)"),
 }
 
 
@@ -304,9 +303,76 @@ class MiloPreprocessor:
         i-th partition (in the strategy's partition order; classes in
         ascending label order): an (n_sge_subsets, k_run, n_run) array in
         the run's (bucketed) geometry, where k_run is the bucket of the
-        oversampled bank width ``min(n_c, refine_factor·k_c)``.
+        oversampled bank width ``min(n_c, refine_factor·k_c)``.  Under a
+        quarantine the partitions are those of the surviving rows.
+
+        With ``firewall`` set, the ground set is screened first
+        (``health.validate_features``, on the host) and the report is
+        stamped into the artifact's config under ``data_health``.  Under
+        ``quarantine`` the flagged rows are left out of selection: ``k`` is
+        computed over the surviving rows, the artifact is mapped back to the
+        full ground set (quarantined rows get zero WRE probability and are
+        in no SGE subset), and their indices are recorded in full.
         """
         features = np.asarray(features)
+        report = None
+        if self.firewall is not None:
+            from repro_torch.health.firewall import validate_features
+
+            features, report = validate_features(
+                features, labels, policy=self.firewall,
+                subset_fraction=self.subset_fraction,
+                # overbudget detection mirrors the decomposition selection
+                # will use (classwise off: the single catch-all)
+                strategy=self.partition_strategy() if self.classwise else None,
+            )
+        quarantined = report.quarantined_rows if report is not None else []
+        kw = dict(encoder_id=encoder_id, prep_seed=prep_seed, sge_noise=sge_noise)
+        if quarantined:
+            m = features.shape[0]
+            labels_full = None if labels is None else np.asarray(labels, np.int64)
+            keep = np.setdiff1d(np.arange(m, dtype=np.int64),
+                                np.asarray(quarantined, np.int64))
+            md = self._preprocess_clean(
+                features[keep], None if labels_full is None else labels_full[keep], seed, **kw)
+            md = self._lift_quarantined(md, keep, m, labels_full)
+        else:
+            md = self._preprocess_clean(features, labels, seed, **kw)
+        if report is not None:
+            md.config["firewall"] = self.firewall
+            md.config["data_health"] = report.to_dict()
+        return md
+
+    @staticmethod
+    def _lift_quarantined(md: MiloMetadata, keep: np.ndarray, m: int,
+                          labels_full: np.ndarray | None) -> MiloMetadata:
+        """Re-index an artifact built over ``features[keep]`` to the full
+        ground set: bank indices map through ``keep``, probabilities and
+        importance scatter into zeros at the quarantined rows."""
+        probs = np.zeros((m,), np.float32)
+        probs[keep] = md.wre_probs
+        imp = np.zeros((m,), np.float32)
+        imp[keep] = md.wre_importance
+        return MiloMetadata(
+            sge_subsets=keep[md.sge_subsets],
+            wre_probs=probs,
+            wre_importance=imp,
+            class_labels=(labels_full if labels_full is not None
+                          else np.zeros((m,), np.int64)),
+            class_budgets=md.class_budgets,
+            config=md.config,
+        )
+
+    def _preprocess_clean(
+        self,
+        features: np.ndarray,
+        labels: np.ndarray | None,
+        seed: int,
+        *,
+        encoder_id: str,
+        prep_seed: int | None,
+        sge_noise: Sequence[Any] | None,
+    ) -> MiloMetadata:
         if self.gram_free and self.metric != "cosine":
             raise ValueError(
                 f"gram_free preprocessing supports metric='cosine' only (got "

@@ -9,6 +9,15 @@ unchanged tree is reused.  Each source exposes plain C entry points, so no
 PyTorch header is compiled (seconds, not minutes) and the library is loaded
 with ``ctypes``.  Nothing here runs at import: the first kernel launch
 builds, so the CPU tests import every module without ``nvcc``.
+
+Every error of the kernel layer is a ``KernelError``: a failed build or
+load (``KernelBuildError``), a CUDA error reported by a launch, and a
+wrapper's refusal of its inputs (``KernelInputError``, also a
+``ValueError``; ``KernelTypeError``, also a ``TypeError``).  They name a
+fault of the program or the card, never of the data, so nothing degrades
+around them (``health.fallback``) and nothing retries them
+(``serve.RetryPolicy``).  ``builds`` counts the libraries this process
+compiled, ``loads`` the libraries it loaded.
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ import tempfile
 import threading
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]          # src/repro_torch
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "kernels"  # <repo>/build/kernels (git-ignored)
@@ -32,6 +43,39 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 _declared: set[str] = set()
 
+builds = 0
+loads = 0
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched, or refused its inputs."""
+
+
+class KernelBuildError(KernelError):
+    """``nvcc`` is missing or failed, or the library did not load."""
+
+
+class KernelInputError(KernelError, ValueError):
+    """A kernel wrapper refused its inputs (device, shape, layout)."""
+
+
+class KernelTypeError(KernelError, TypeError):
+    """A kernel wrapper refused its inputs' dtype."""
+
+
+def is_kernel_fault(exc: BaseException) -> bool:
+    """Whether ``exc`` is a fault of the kernel layer or of the card: a
+    ``KernelError``, or a CUDA error PyTorch raised (out of memory, an
+    illegal address, a failed launch)."""
+    if isinstance(exc, KernelError):
+        return True
+    accel = getattr(torch, "AcceleratorError", None)
+    if accel is not None and isinstance(exc, accel):
+        return True
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA error" in str(exc)
+
 
 def sources() -> list[Path]:
     """The files ``nvcc`` compiles: ``csrc/*.cu`` (headers are included)."""
@@ -41,7 +85,7 @@ def sources() -> list[Path]:
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError(
+        raise KernelBuildError(
             "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
             "build only where the CUDA toolkit is installed"
         )
@@ -60,6 +104,7 @@ def _digest() -> str:
 def build() -> tuple[Path, str]:
     """Compile the library unless this exact build exists; returns its path
     and the compiler's report (``-Xptxas -v`` output of every source)."""
+    global builds
     srcs = sources()
     lib = BUILD_DIR / f"libreprotorch_{_digest()}.so"
     log = lib.with_suffix(".log")
@@ -80,7 +125,7 @@ def build() -> tuple[Path, str]:
         for s, _, proc in jobs:
             out, _ = proc.communicate()
             if proc.returncode:
-                raise RuntimeError(f"nvcc failed on {s.name}:\n{out}")
+                raise KernelBuildError(f"nvcc failed on {s.name}:\n{out}")
             reports.append(f"== {s.name}\n{out.strip()}")
         staged = Path(tmp) / lib.name
         link = subprocess.run(
@@ -88,12 +133,13 @@ def build() -> tuple[Path, str]:
             capture_output=True, text=True,
         )
         if link.returncode:
-            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+            raise KernelBuildError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
         report = "\n".join(reports)
         # log first, library last: whoever sees the library also sees its log;
         # os.replace keeps concurrent builders from reading a partial file
         log.write_text(report)
         os.replace(staged, lib)
+        builds += 1
     return lib, report
 
 
@@ -101,11 +147,15 @@ def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
     """The library's C entry point ``name`` with its ``argtypes`` declared
     (pointers and the stream as ``c_void_p``, so none is cut to 32 bits);
     every entry point returns a CUDA error code as ``c_int``."""
-    global _lib
+    global _lib, loads
     with _lock:
         if _lib is None:
             path, _ = build()
-            lib = ctypes.CDLL(str(path))
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelBuildError(f"cannot load {path}: {e}") from e
+            loads += 1
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -121,4 +171,4 @@ def check(code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if code:
         msg = _lib.repro_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+        raise KernelError(f"{what}: CUDA error {code} ({msg})")

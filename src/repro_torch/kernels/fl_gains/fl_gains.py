@@ -60,12 +60,12 @@ _GRID_YZ = 65535
 def _check_f32(name: str, dev: torch.device, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device != dev or dev.type != "cuda":
-            raise ValueError(f"{name} needs every input on one CUDA device "
+            raise _build.KernelInputError(f"{name} needs every input on one CUDA device "
                              f"(got {t.device} and {dev})")
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} takes float32 inputs (got {t.dtype})")
+            raise _build.KernelTypeError(f"{name} takes float32 inputs (got {t.dtype})")
         if not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous row-major inputs")
+            raise _build.KernelInputError(f"{name} needs contiguous row-major inputs")
 
 
 def _batch(name: str, n: int, c: torch.Tensor, other: torch.Tensor, other_dim: int) -> int:
@@ -73,17 +73,17 @@ def _batch(name: str, n: int, c: torch.Tensor, other: torch.Tensor, other_dim: i
     operand's (batched when it has ``other_dim`` dimensions); an unbatched
     operand is shared across the batch (batch stride 0)."""
     if c.dim() not in (1, 2) or c.shape[-1] != n:
-        raise ValueError(f"{name}: cover of shape {tuple(c.shape)} is not ({n},) or (B, {n})")
+        raise _build.KernelInputError(f"{name}: cover of shape {tuple(c.shape)} is not ({n},) or (B, {n})")
     batches = {t.shape[0] for t, dim in ((c, 2), (other, other_dim)) if t.dim() == dim}
     if len(batches) > 1:
-        raise ValueError(f"{name}: batch sizes {sorted(batches)} differ")
+        raise _build.KernelInputError(f"{name}: batch sizes {sorted(batches)} differ")
     return batches.pop() if batches else 0
 
 
 def _outputs(dev, batch: int, n: int, n_cand: int) -> tuple[torch.Tensor, torch.Tensor | None]:
     n_chunks = -(-n // _CHUNK)
     if n_chunks > _GRID_YZ or batch > _GRID_YZ or max(n, n_cand) > _INT_MAX:
-        raise ValueError(f"shape (batch {batch}, n {n}, n_cand {n_cand}) exceeds the kernel's grid")
+        raise _build.KernelInputError(f"shape (batch {batch}, n {n}, n_cand {n_cand}) exceeds the kernel's grid")
     out = torch.empty((batch, n_cand), dtype=torch.float32, device=dev)
     scratch = (torch.empty((batch, n_chunks, n_cand), dtype=torch.float32, device=dev)
                if n_chunks > 1 else None)
@@ -107,7 +107,7 @@ def fl_gains_gram_free_cuda(z: torch.Tensor, zc: torch.Tensor, c: torch.Tensor) 
     name = "fl_gains_gram_free_cuda"
     _check_f32(name, z.device, z, zc, c)
     if z.dim() != 2 or zc.dim() not in (2, 3) or zc.shape[-1] != z.shape[1]:
-        raise ValueError(f"{name}: shapes {tuple(z.shape)} and {tuple(zc.shape)} are not "
+        raise _build.KernelInputError(f"{name}: shapes {tuple(z.shape)} and {tuple(zc.shape)} are not "
                          "(n, d) and ([B,] n_cand, d)")
     n, d = z.shape
     n_cand = zc.shape[-2]
@@ -133,12 +133,12 @@ def fl_gains_gram_free_delta_cuda(z: torch.Tensor, zc: torch.Tensor, c_old: torc
     name = "fl_gains_gram_free_delta_cuda"
     _check_f32(name, z.device, z, zc, c_old, c_new)
     if z.dim() != 2 or zc.dim() != 2 or zc.shape[1] != z.shape[1]:
-        raise ValueError(f"{name}: shapes {tuple(z.shape)} and {tuple(zc.shape)} are not "
+        raise _build.KernelInputError(f"{name}: shapes {tuple(z.shape)} and {tuple(zc.shape)} are not "
                          "(b, d) and (n_cand, d)")
     b, d = z.shape
     n_cand = zc.shape[0]
     if tuple(c_old.shape) != (b,) or tuple(c_new.shape) != (b,):
-        raise ValueError(f"{name}: covers {tuple(c_old.shape)} and {tuple(c_new.shape)} "
+        raise _build.KernelInputError(f"{name}: covers {tuple(c_old.shape)} and {tuple(c_new.shape)} "
                          f"are not ({b},)")
     out, scratch = _outputs(z.device, 1, b, n_cand)
     if n_cand and b:
@@ -160,11 +160,11 @@ def fl_gains_cuda(K: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     name = "fl_gains_cuda"
     _check_f32(name, K.device, c)
     if K.device != c.device or K.dtype != torch.float32:
-        raise TypeError(f"{name} takes a float32 K on the covers' CUDA device "
+        raise _build.KernelTypeError(f"{name} takes a float32 K on the covers' CUDA device "
                         f"(got {K.dtype} on {K.device})")
     if (K.dim() not in (2, 3) or K.stride(-1) != 1 or K.stride(-2) < K.shape[-1]
             or (K.dim() == 3 and K.stride(0) != K.shape[1] * K.stride(1))):
-        raise ValueError(f"{name}: K must be ([B,] n, n_cand) with unit column stride")
+        raise _build.KernelInputError(f"{name}: K must be ([B,] n, n_cand) with unit column stride")
     n, n_cand = K.shape[-2:]
     batch = _batch(name, n, c, K, 3)
     out, scratch = _outputs(K.device, max(batch, 1), n, n_cand)

@@ -60,39 +60,39 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     global launches
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention_cuda needs q, k and v on one CUDA device "
+        raise _build.KernelInputError(f"flash_attention_cuda needs q, k and v on one CUDA device "
                          f"(got {q.device}, {k.device}, {v.device})")
     if q.dtype not in _ENTRY or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_cuda takes f32 or bf16 inputs of one dtype "
+        raise _build.KernelTypeError(f"flash_attention_cuda takes f32 or bf16 inputs of one dtype "
                         f"(got {q.dtype}, {k.dtype}, {v.dtype})")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)} are not "
+        raise _build.KernelInputError(f"shapes {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)} are not "
                          "(B, Hq, Sq, D) and two equal (B, Hkv, Sk, D)")
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or hkv == 0 or hq % hkv:
-        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch and head dim must "
+        raise _build.KernelInputError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch and head dim must "
                          "agree and Hq must be a multiple of Hkv")
     if d > D_MAX:
-        raise ValueError(f"head dim {d} > {D_MAX}: the kernel's tiles hold at most {D_MAX}")
+        raise _build.KernelInputError(f"head dim {d} > {D_MAX}: the kernel's tiles hold at most {D_MAX}")
     if causal and sq > sk:
-        raise ValueError(f"causal attention with more queries ({sq}) than keys ({sk}) "
+        raise _build.KernelInputError(f"causal attention with more queries ({sq}) than keys ({sk}) "
                          "leaves rows with no key")
     if any(t.stride(3) != 1 for t in (q, k, v)) and d > 1:
-        raise ValueError("flash_attention_cuda needs a unit stride on the head dim")
+        raise _build.KernelInputError("flash_attention_cuda needs a unit stride on the head dim")
     bf16 = q.dtype == torch.bfloat16
     grid_y = -(-sq // BQ_BF16) if bf16 else b * hq
     if max(sq, sk) > _INT_MAX or b * hq > _INT_MAX or grid_y > _GRID_Y:
-        raise ValueError(f"shape (B·Hq {b * hq}, Sq {sq}, Sk {sk}) exceeds the kernel's grid")
+        raise _build.KernelInputError(f"shape (B·Hq {b * hq}, Sq {sq}, Sk {sk}) exceeds the kernel's grid")
     if bf16 and sq and sk and not all(tma_ready(t) for t in (q, k, v)):
-        raise ValueError("the bf16 kernel's TMA maps need 16-byte-aligned q, k and v, D % 8 == 0 "
+        raise _build.KernelInputError("the bf16 kernel's TMA maps need 16-byte-aligned q, k and v, D % 8 == 0 "
                          "and row/head/batch strides of 8-element multiples; "
                          "ops.flash_attention copies such inputs")
     out = torch.empty_like(q)  # q's memory layout: unit stride on D, as checked above
     if out.numel() == 0:
         return out
     if sk == 0:
-        raise ValueError("attention over zero keys")
+        raise _build.KernelInputError("attention over zero keys")
     strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in t.stride()[:3]))
     fn = _build.function(_ENTRY[q.dtype], _ARGTYPES)
     stream = torch.cuda.current_stream(q.device).cuda_stream

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels._build import KernelInputError
+
 
 def gqa_attention_ref(
     q: torch.Tensor,
@@ -24,7 +26,7 @@ def gqa_attention_ref(
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv:
-        raise ValueError(f"{hq} query heads are not a multiple of {hkv} kv heads")
+        raise KernelInputError(f"{hq} query heads are not a multiple of {hkv} kv heads")
     group = hq // hkv
     if scale is None:
         scale = 1.0 / (d ** 0.5)

@@ -51,27 +51,27 @@ def similarity_cuda(
     """
     global launches
     if zq.device.type != "cuda" or zk.device != zq.device:
-        raise ValueError(f"similarity_cuda needs both inputs on one CUDA device "
+        raise _build.KernelInputError(f"similarity_cuda needs both inputs on one CUDA device "
                          f"(got {zq.device} and {zk.device})")
     if zq.dtype not in _ENTRY or zk.dtype != zq.dtype:
-        raise TypeError(f"similarity_cuda takes fp32 or bf16 inputs of one dtype "
+        raise _build.KernelTypeError(f"similarity_cuda takes fp32 or bf16 inputs of one dtype "
                         f"(got {zq.dtype} and {zk.dtype})")
     if zq.dim() != 2 or zk.dim() != 2 or zq.shape[1] != zk.shape[1]:
-        raise ValueError(f"shapes {tuple(zq.shape)} and {tuple(zk.shape)} are not "
+        raise _build.KernelInputError(f"shapes {tuple(zq.shape)} and {tuple(zk.shape)} are not "
                          "(mq, d) and (mk, d)")
     if not (copy_ready(zq) and copy_ready(zk)):
-        raise ValueError("similarity_cuda needs contiguous row-major inputs with d % 4 == 0 "
+        raise _build.KernelInputError("similarity_cuda needs contiguous row-major inputs with d % 4 == 0 "
                          "and bases aligned to 4 elements (ops.similarity copies others)")
     mq, d = zq.shape
     mk = zk.shape[0]
     if max(mq, mk, d) > _INT_MAX or -(-mq // _TILE) > 65535:
-        raise ValueError(f"shape ({mq}, {mk}, {d}) exceeds the kernel's grid")
+        raise _build.KernelInputError(f"shape ({mq}, {mk}, {d}) exceeds the kernel's grid")
     if out is None:
         out = torch.empty((mq, mk), dtype=torch.float32, device=zq.device)
     elif (out.dtype != torch.float32 or out.device != zq.device
           or tuple(out.shape) != (mq, mk) or out.stride(1) != 1
           or out.stride(0) < mk):
-        raise ValueError("out must be a float32 (mq, mk) view with unit column "
+        raise _build.KernelInputError("out must be a float32 (mq, mk) view with unit column "
                          "stride on the inputs' device")
     if mq == 0 or mk == 0:
         return out

@@ -48,29 +48,29 @@ def ssd_chunk_cuda(x, a, b, c, h_in, *, y=None, h_out=None):
     ins = (x, a, b, c, h_in)
     dev = x.device
     if dev.type != "cuda" or any(t.device != dev for t in ins):
-        raise ValueError("ssd_chunk_cuda needs every input on one CUDA device "
+        raise _build.KernelInputError("ssd_chunk_cuda needs every input on one CUDA device "
                          f"(got {[str(t.device) for t in ins]})")
     if any(t.dtype != torch.float32 for t in ins):
-        raise TypeError(f"ssd_chunk_cuda takes float32 inputs (got {[t.dtype for t in ins]})")
+        raise _build.KernelTypeError(f"ssd_chunk_cuda takes float32 inputs (got {[t.dtype for t in ins]})")
     if x.dim() != 4 or a.dim() != 3 or b.dim() != 3 or c.shape != b.shape or h_in.dim() != 4:
-        raise ValueError("shapes are not x (B, L, H, P), a (B, L, H), b = c (B, L, N), "
+        raise _build.KernelInputError("shapes are not x (B, L, H, P), a (B, L, H), b = c (B, L, N), "
                          f"h_in (B, H, N, P): {[tuple(t.shape) for t in ins]}")
     B, L, H, P = x.shape
     N = b.shape[-1]
     if tuple(a.shape) != (B, L, H) or tuple(b.shape[:2]) != (B, L) or tuple(h_in.shape) != (B, H, N, P):
-        raise ValueError(f"shapes disagree: {[tuple(t.shape) for t in ins]}")
+        raise _build.KernelInputError(f"shapes disagree: {[tuple(t.shape) for t in ins]}")
     if P > P_MAX or N > N_MAX:
-        raise ValueError(f"head dim {P} > {P_MAX} or state dim {N} > {N_MAX}: beyond the kernel's tiles")
+        raise _build.KernelInputError(f"head dim {P} > {P_MAX} or state dim {N} > {N_MAX}: beyond the kernel's tiles")
     y = torch.empty((B, L, H, P), dtype=torch.float32, device=dev) if y is None else y
     h_out = torch.empty((B, H, N, P), dtype=torch.float32, device=dev) if h_out is None else h_out
     for name, t, shape in (("y", y, (B, L, H, P)), ("h_out", h_out, (B, H, N, P))):
         if t.dtype != torch.float32 or t.device != dev or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be a float32 {shape} tensor on {dev}")
+            raise _build.KernelInputError(f"{name} must be a float32 {shape} tensor on {dev}")
     if any(t.stride(-1) != 1 for t in (*ins, y, h_out)):
-        raise ValueError("ssd_chunk_cuda needs a unit stride on every last dim")
+        raise _build.KernelInputError("ssd_chunk_cuda needs a unit stride on every last dim")
     lo, hi = h_in.data_ptr(), h_in.data_ptr() + 4 * h_in.numel()
     if h_out.data_ptr() < hi and lo < h_out.data_ptr() + 4 * h_out.numel():
-        raise ValueError("h_out overlaps h_in")
+        raise _build.KernelInputError("h_out overlaps h_in")
     if B * H == 0 or L == 0:
         if L == 0:
             h_out.copy_(h_in)
@@ -97,10 +97,10 @@ def mma_probe_cuda(a, b, c):
     values, c (T, 16, 8), f32 on one card.  For holding the tensor cores'
     sum against its model, ``tf32.mma_sum``; not a launch of the kernel."""
     if a.device.type != "cuda" or b.device != a.device or c.device != a.device:
-        raise ValueError("mma_probe_cuda needs a, b and c on one CUDA device")
+        raise _build.KernelInputError("mma_probe_cuda needs a, b and c on one CUDA device")
     T = a.shape[0]
     if tuple(a.shape) != (T, 16, 8) or tuple(b.shape) != (T, 8, 8) or tuple(c.shape) != (T, 16, 8):
-        raise ValueError(f"shapes are not (T, 16, 8), (T, 8, 8), (T, 16, 8): "
+        raise _build.KernelInputError(f"shapes are not (T, 16, 8), (T, 8, 8), (T, 16, 8): "
                          f"{[tuple(t.shape) for t in (a, b, c)]}")
     a, b, c = (t.float().contiguous() for t in (a, b, c))
     d = torch.empty_like(c)

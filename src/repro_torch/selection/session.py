@@ -17,12 +17,23 @@ with plan weights flowing into the loss, on the step loop or, with
 every trial.  The config is the reference's, field for field, so its keys
 and every artifact's ``config_hash`` are the same; ``device`` is a
 constructor keyword argument, not a field.
+
+``firewall`` screens the ground set before preprocessing
+(``health.firewall``); ``selector_fallback`` wraps the selector in a
+``health.FallbackSelector`` chain.  A ``buffer_registry``
+(``serve.BufferRegistry``) gives the fused path its resident columns, so
+every session of a ``serve.MiloServer`` trains on one device copy of a
+dataset and the fused engine's graphs survive from tenant to tenant.  One
+session may serve several threads at once (the server's workers): its
+step functions are made under a lock, and the fused engine serialises
+what its graphs share (``train.engine``).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import math
+import threading
 import time
 from typing import Any, NamedTuple
 
@@ -58,7 +69,6 @@ _PREPROCESS_KEYS = (
 UNPORTED_SESSION = {
     "multihost_init": (False, "A11 (multi-host execution)"),
     "heartbeat_dir": (None, "A11 (multi-host liveness)"),
-    "selector_fallback": ((), "A9b (selector fallback chains)"),
 }
 
 
@@ -212,6 +222,7 @@ class MiloSession:
         config: MiloSessionConfig | None = None,
         *,
         device: str | torch.device = "cuda",
+        buffer_registry: Any | None = None,
         **overrides: Any,
     ):
         if config is None:
@@ -224,10 +235,14 @@ class MiloSession:
         self.config = config
         self.metadata: MiloMetadata | None = None
         self.loaded_from_artifact = False
-        # (features, labels, device columns) a tune() sweep shares across its
-        # trials, so the fused engine's graphs (which read the columns in
-        # place) are captured once per shape, not once per trial
+        # shared device columns for the fused path (serve.BufferRegistry)
+        self.buffer_registry = buffer_registry
+        # without a registry: the (features, labels, device columns) a tune()
+        # sweep shares across its trials, so the fused engine's graphs (which
+        # read the columns in place) are captured once per shape, not once
+        # per trial
         self._columns: tuple[Any, Any, dict] | None = None
+        self._lock = threading.Lock()
         # one step function per sub_steps value, shared by every train() and
         # tune() of this session: lr and horizon live in the state's tensors,
         # so the fused engine (weakly keyed by step function) reuses its
@@ -405,7 +420,38 @@ class MiloSession:
         n, seed, features and device for the fields their configs declare,
         and take the rest (labels, queries, scores, ``grad_fn``, ``R``, ...)
         through ``extra``.  Selection runs on the session's device, and
-        ``milo`` takes ``wre_noise=`` through ``extra``."""
+        ``milo`` takes ``wre_noise=`` through ``extra``.
+
+        With ``config.selector_fallback`` declared, the result is a
+        ``health.FallbackSelector`` walking ``(primary, *fallbacks)``:
+        degenerate selection math degrades down the chain, every hop in the
+        plan's provenance.  The fallback tiers are wired from session state
+        only (``extra`` applies to the primary)."""
+        cfg = self.config
+        resolved = name or cfg.selector
+        if not cfg.selector_fallback:
+            return self._build_selector(resolved, n=n, epochs=epochs, seed=seed,
+                                        features=features, **extra)
+        from repro_torch.health.fallback import FallbackSelector
+
+        def factory(nm: str, ex: dict):
+            return lambda: self._build_selector(nm, n=n, epochs=epochs, seed=seed,
+                                                features=features, **ex)
+
+        chain = [(resolved, factory(resolved, dict(extra)))]
+        chain += [(fb, factory(fb, {})) for fb in cfg.selector_fallback]
+        return FallbackSelector(chain)
+
+    def _build_selector(
+        self,
+        name: str | None = None,
+        *,
+        n: int,
+        epochs: int | None = None,
+        seed: int | None = None,
+        features: np.ndarray | None = None,
+        **extra: Any,
+    ) -> Selector:
         cfg = self.config
         name = name or cfg.selector
         selector_entry(name)  # KeyError for unknown names
@@ -511,9 +557,10 @@ class MiloSession:
         pipe = Pipeline(make_batch, sel, batch_size, seed=seed,
                         arrays={"x": feats, "y": labs}, device=dev)
         steps = max(1, pipe.steps_per_epoch()) * epochs
-        train_step = self._steps.get(cfg.sub_steps)
-        if train_step is None:
-            train_step = self._steps[cfg.sub_steps] = _classifier_step_fn(cfg.sub_steps)
+        with self._lock:
+            train_step = self._steps.get(cfg.sub_steps)
+            if train_step is None:
+                train_step = self._steps[cfg.sub_steps] = _classifier_step_fn(cfg.sub_steps)
 
         def init_state() -> _ClassifierState:
             return _init_classifier(seed, feats.shape[1], n_classes, hidden, float(lr),
@@ -525,14 +572,12 @@ class MiloSession:
         def eval_fn(st: _ClassifierState) -> dict:
             return {"acc": accuracy(st.params, tx, ty)}
 
-        shared = self._columns
         trainer = Trainer(
             train_step, pipe,
             TrainerConfig(epochs=epochs, eval_every_epochs=cfg.eval_every_epochs,
                           log_every_steps=1),
             eval_fn=eval_fn, fused=cfg.fused_training, superstep=cfg.superstep,
-            resident_buffers=(shared[2] if shared is not None and shared[0] is features
-                              and shared[1] is labels else None),
+            resident_buffers=self._resident(features, labels, feats, labs),
         )
         # warm up outside the timed region (library handles, allocator, both
         # curriculum phases' draws) on a throwaway state, then drop the plan
@@ -557,6 +602,19 @@ class MiloSession:
         accs = [float(h["acc"]) for h in trainer.history if "acc" in h] + [final]
         return TrainReport(final_acc=final, best_acc=max(accs), train_time=train_time,
                            steps=int(state.step), history=trainer.history)
+
+    def _resident(self, features, labels, feats: np.ndarray, labs: np.ndarray) -> dict | None:
+        """The fused path's resident columns: the registry's shared ones, or
+        the ones a running tune() sweep shares, or None (the Trainer places
+        its own)."""
+        if not self.config.fused_training:
+            return None
+        if self.buffer_registry is not None:
+            return self.buffer_registry.get({"x": feats, "y": labs})
+        shared = self._columns
+        if shared is not None and shared[0] is features and shared[1] is labels:
+            return shared[2]
+        return None
 
     # -- stage 3: hyper-parameter tuning ------------------------------------
 
@@ -617,7 +675,7 @@ class MiloSession:
             )
 
         objective = subset_objective(train_fn, selector_factory)
-        if cfg.fused_training:
+        if cfg.fused_training and self.buffer_registry is None:
             self._columns = (features, labels, {
                 "x": torch.as_tensor(np.asarray(features, np.float32), device=self.device),
                 "y": torch.as_tensor(np.asarray(labels, np.int64), device=self.device)})

@@ -50,10 +50,21 @@ stacked metrics — no host read on the healthy path.  A step that updates
 its state in place (``updates_in_place``) has the pre-step state copied
 until its flag is known, one state a step inside the graph's pool; a step
 that returns a new state costs no copy (``health.guard``).
+
+**Threads.** A server runs several tenants' trainings at once, on one
+session's step function and so on one engine.  A graph owns static copies,
+so an engine serialises copy-in, replay and copy-out (and the choice or
+capture of a graph) under its own lock: concurrent calls give the bits of
+serial ones.  A capture takes a process-wide lock (the capture stream of
+``torch.cuda.graph`` is one per process, and the cuBLAS workspaces it
+clears are shared) and runs in ``thread_local`` capture mode, so other
+threads' work on other streams goes on while it lasts.  The counters
+are updated under a lock.
 """
 from __future__ import annotations
 
 import functools
+import threading
 import weakref
 from typing import Any, Callable
 
@@ -67,6 +78,9 @@ TrainStep = Callable[[Any, dict], tuple[Any, dict]]
 #: CUDA graphs captured and replayed by every engine in this process
 captures = 0
 replays = 0
+_counts_lock = threading.Lock()
+#: one capture at a time in this process (see the module docstring)
+_capture_lock = threading.RLock()
 
 
 def _signature(tree: Any) -> tuple:
@@ -113,24 +127,26 @@ class _Graph:
         self.state = T.map(lambda t: t.detach().clone(), state)
         self.inputs = {k: v.clone() for k, v in inputs.items()}
         self.buffers = buffers  # read in place by every replay: kept alive here
-        # warm-up on a side stream (library handles, autograd, the allocator),
-        # then the capture; both run on the static copies only
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            body(self.state, self.inputs, buffers)
-        torch.cuda.current_stream().wait_stream(side)
-        # cuBLAS keeps a workspace per stream it ran on for the life of the
-        # process.  Dropping them before and after the capture (as torch's
-        # own graph trees do) puts the workspace the graph uses in its
-        # private pool, freed with the graph, and leaves none behind for the
-        # warm-up's and the capture's streams
-        _clear_cublas_workspaces()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.out, self.metrics = body(self.state, self.inputs, buffers)
-        _clear_cublas_workspaces()
-        captures += 1
+        with _capture_lock:
+            # warm-up on a side stream (library handles, autograd, the
+            # allocator), then the capture; both run on the static copies only
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body(self.state, self.inputs, buffers)
+            torch.cuda.current_stream().wait_stream(side)
+            # cuBLAS keeps a workspace per stream it ran on for the life of
+            # the process.  Dropping them before and after the capture (as
+            # torch's own graph trees do) puts the workspace the graph uses
+            # in its private pool, freed with the graph, and leaves none
+            # behind for the warm-up's and the capture's streams
+            _clear_cublas_workspaces()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+                self.out, self.metrics = body(self.state, self.inputs, buffers)
+            _clear_cublas_workspaces()
+        with _counts_lock:
+            captures += 1
 
     def __call__(self, state: Any, inputs: dict) -> tuple[Any, dict]:
         global replays
@@ -142,8 +158,10 @@ class _Graph:
             self.graph.replay()
             for dst, src in zip(T.leaves(state), T.leaves(self.out)):
                 dst.copy_(src)
-        replays += 1
-        return state, {k: v.clone() for k, v in self.metrics.items()}
+            metrics = {k: v.clone() for k, v in self.metrics.items()}
+        with _counts_lock:
+            replays += 1
+        return state, metrics
 
 
 def make_superstep(train_step: TrainStep, *, guard: GuardPolicy | None = None):
@@ -157,6 +175,7 @@ def make_superstep(train_step: TrainStep, *, guard: GuardPolicy | None = None):
     """
     step = guarded_step(train_step, guard) if guard is not None else train_step
     graphs: dict[tuple, _Graph] = {}
+    lock = threading.Lock()
     body = functools.partial(_superstep_body, step)
 
     def superstep(state: Any, batches: dict) -> tuple[Any, dict]:
@@ -164,10 +183,11 @@ def make_superstep(train_step: TrainStep, *, guard: GuardPolicy | None = None):
             return body(state, batches, {})
         key = (tuple((k, tuple(v.shape), v.dtype) for k, v in batches.items()),
                _signature(state))
-        graph = graphs.get(key)
-        if graph is None:
-            graph = graphs[key] = _Graph(body, state, batches, {})
-        return graph(state, batches)
+        with lock:
+            graph = graphs.get(key)
+            if graph is None:
+                graph = graphs[key] = _Graph(body, state, batches, {})
+            return graph(state, batches)
 
     return superstep
 
@@ -183,6 +203,7 @@ class _EpochEngine:
         self.guard = guard
         self.graphs: dict[tuple, _Graph] = {}
         self._buffers: dict | None = None
+        self._lock = threading.Lock()
 
     def __call__(self, state: Any, buffers: dict, idx: torch.Tensor,
                  w: torch.Tensor) -> tuple[Any, dict]:
@@ -194,21 +215,23 @@ class _EpochEngine:
         inputs = {"idx": idx, "w": w}
         if idx.device.type != "cuda":
             return body(state, inputs, buffers)
-        if self._buffers is None or self._buffers.keys() != buffers.keys() or any(
-                self._buffers[k] is not buffers[k] for k in buffers):
-            self.graphs.clear()
-            self._buffers = dict(buffers)
         key = (tuple(idx.shape), _signature(state))
-        graph = self.graphs.get(key)
-        if graph is None:
-            graph = self.graphs[key] = _Graph(body, state, inputs, self._buffers)
-        return graph(state, inputs)
+        with self._lock:
+            if self._buffers is None or self._buffers.keys() != buffers.keys() or any(
+                    self._buffers[k] is not buffers[k] for k in buffers):
+                self.graphs.clear()
+                self._buffers = dict(buffers)
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = _Graph(body, state, inputs, self._buffers)
+            return graph(state, inputs)
 
 
 #: train_step -> {weight_key or (weight_key, guard): engine}; weakly keyed
 #: so per-instance steps do not pin their engines (and their graphs) for the
 #: life of the process
 _ENGINE_CACHE: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+_cache_lock = threading.Lock()
 
 
 def epoch_engine(train_step: TrainStep, *, weight_key: str | None = "weights",
@@ -227,11 +250,12 @@ def epoch_engine(train_step: TrainStep, *, weight_key: str | None = "weights",
     step; ``GuardPolicy`` is hashable, so guarded and unguarded engines
     coexist in the cache.
     """
-    per_step = _ENGINE_CACHE.setdefault(train_step, {})
     key = weight_key if guard is None else (weight_key, guard)
-    engine = per_step.get(key)
-    if engine is None:
-        engine = per_step[key] = _EpochEngine(train_step, weight_key, guard)
+    with _cache_lock:
+        per_step = _ENGINE_CACHE.setdefault(train_step, {})
+        engine = per_step.get(key)
+        if engine is None:
+            engine = per_step[key] = _EpochEngine(train_step, weight_key, guard)
     return engine
 
 

@@ -754,6 +754,48 @@ def test_fused_graphs_are_reused_across_trials_and_widths(cuda_device):
 
 
 @pytest.mark.cuda
+def test_fused_engine_concurrent_trainings_equal_serial(cuda_device):
+    """Threads training at once on one session (one step function, so one
+    engine and its graphs; one set of resident columns from a buffer
+    registry) get the bits of the same trainings run one after another."""
+    import threading
+
+    from repro_torch.selection import MiloSession
+    from repro_torch.serve import BufferRegistry
+    from repro_torch.train import engine as engine_mod
+
+    feats, labs, _, _ = _fused_case("cpu", n=600)
+    session = MiloSession(selector="random", subset_fraction=0.2, batch_size=16, superstep=4,
+                          fused_training=True, device=cuda_device,
+                          buffer_registry=BufferRegistry(cuda_device))
+    runs = [(seed, hidden) for seed in (1, 2, 3) for hidden in (32, 64)]
+
+    def train(seed, hidden):
+        rep = session.train(feats, labs, test_x=feats[:100], test_y=labs[:100], epochs=3,
+                            seed=seed, hidden=hidden, lr=0.05)
+        return [(h["step"], h["loss"]) for h in rep.history if "loss" in h], rep.final_acc
+
+    serial = {r: train(*r) for r in runs}
+    captures = engine_mod.captures
+    out, errors = {}, []
+
+    def worker(r):
+        try:
+            out[r] = train(*r)
+        except BaseException as e:  # pragma: no cover - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=worker, args=(r,)) for r in runs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert out == serial
+    assert engine_mod.captures == captures, "the serial runs captured every shape"
+
+
+@pytest.mark.cuda
 def test_fused_capture_failure_raises(cuda_device):
     """A step that reads a device value on the host cannot be captured: the
     engine raises instead of falling back to the eager loop."""

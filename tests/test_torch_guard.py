@@ -8,7 +8,6 @@ segments eagerly; the card runs them as CUDA graphs (``chip_smoke.py``
 phase 18c)."""
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -20,6 +19,7 @@ from repro_torch.data.pipeline import Pipeline
 from repro_torch.health import GUARD_KEY, DivergenceError, GuardPolicy, guarded_step
 from repro_torch.selection import build_selector
 from repro_torch.selection import session as S
+from repro_torch.testing.faults import nan_at_step
 from repro_torch.train import engine as engine_mod
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
@@ -34,29 +34,6 @@ class _TinyState(NamedTuple):
 def _tiny_step(state, batch):
     loss = torch.sum(state.p * batch["x"])
     return _TinyState(state.p - 0.1 * batch["x"], state.step + 1), {"loss": loss}
-
-
-def nan_at_step(train_step, *, step: int):
-    """The reference's ``testing.faults.nan_at_step`` on tensors: the step
-    whose incoming counter equals ``step`` poisons every floating leaf of
-    its new state and metrics (read before the step, which may update the
-    state in place; ``functools.wraps`` carries its ``updates_in_place``)."""
-    @functools.wraps(train_step)
-    def wrapper(state, batch):
-        hit = state.step == step
-        new_state, metrics = train_step(state, batch)
-
-        def nanify(x):
-            if not torch.is_floating_point(x):
-                return x
-            with torch.no_grad():
-                return torch.where(hit, torch.full_like(x, float("nan")), x)
-
-        from repro_torch import tree as T
-
-        return T.map(nanify, new_state), {k: nanify(v) for k, v in metrics.items()}
-
-    return wrapper
 
 
 def test_policy_constants_match_reference():

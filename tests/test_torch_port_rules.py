@@ -90,10 +90,25 @@ def test_default_device_raises_without_a_card():
     assert init_mlp(torch.Generator().manual_seed(0), 4, 2, 8, device="cpu")["w1"].device.type == "cpu"
 
 
+def test_server_defaults_to_the_card():
+    """``MiloServer`` runs its sessions and places its buffers on the card
+    unless the caller asks for the CPU; without a card it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.serve import BufferRegistry, MiloServer
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        MiloServer(MiloSessionConfig())
+    with pytest.raises(RuntimeError, match="cuda"):
+        MiloServer(MiloSessionConfig(), device="cuda")
+    with pytest.raises(RuntimeError, match="cuda"):
+        BufferRegistry()
+    assert MiloServer(MiloSessionConfig(), device="cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("knob,value", [
-    ("shard_selection", True), ("firewall", "repair"),
+    ("shard_selection", True),
     ("multihost_init", True), ("heartbeat_dir", "hb"),
-    ("selector_fallback", ("adaptive_random",)),
 ])
 def test_unported_knobs_raise(knob, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
