@@ -9,8 +9,12 @@ tensor-core kernel's TMA maps cannot address in place — a base off 16-byte
 alignment, a stride that is not a multiple of 8 elements, or D % 8 != 0 —
 is copied first: exactly, into a contiguous tensor, with D zero-padded to a
 multiple of 8 (zero columns add nothing to q·kᵀ, and the output's pad
-columns are sliced off).  ``copies`` counts those copies and each one is
-logged; the serving path makes none.
+columns are sliced off).  Mixed dtypes (a bf16 q against f32 keys and
+values, as cross-attention to an f32 context gives them) take what the
+reference's kernel computes — every input upcast to f32 in its body, the
+output in q's dtype: each bf16 input is copied to f32 and the f32 kernel
+runs.  ``copies`` counts all those copies and each one is logged; the
+serving path makes none.
 """
 from __future__ import annotations
 
@@ -52,6 +56,21 @@ def tma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list[torc
     return out
 
 
+def f32_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list[torch.Tensor]:
+    """q, k and v of mixed bf16/f32 dtypes as f32: each bf16 one becomes an
+    exact f32 copy, counted and logged."""
+    global copies
+    out = []
+    for name, t in zip("qkv", (q, k, v)):
+        if t.dtype == torch.bfloat16:
+            copies += 1
+            _log.warning("flash_attention: copied %s %s from bf16 to f32 (mixed input dtypes "
+                         "%s, %s, %s)", name, tuple(t.shape), q.dtype, k.dtype, v.dtype)
+            t = t.float()
+        out.append(t)
+    return out
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -66,6 +85,9 @@ def flash_attention(
     version."""
     if not use_pallas or q.device.type == "cpu":
         return gqa_attention_ref(q, k, v, causal=causal).to(q.dtype)
+    dtypes = {q.dtype, k.dtype, v.dtype}
+    if len(dtypes) > 1 and dtypes <= {torch.bfloat16, torch.float32}:
+        return flash_attention_cuda(*f32_operands(q, k, v), causal=causal).to(q.dtype)
     d = q.shape[-1]
     if (all(t.dtype == torch.bfloat16 and t.dim() == 4 for t in (q, k, v)) and d <= D_MAX
             and min(q.numel(), k.numel()) > 0):

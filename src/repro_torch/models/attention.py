@@ -21,6 +21,12 @@ Modes: ``train`` (full causal self-attention), ``prefill`` (train, and
 returns K/V for the cache), ``decode`` (new tokens against a fixed-size
 cache, written in place at each slot's own length).  KV heads are not
 repeated in memory on either path.
+
+Cross-attention (``kv_x``): keys and values are projected from the context
+and are not rotated.  A context in another dtype than the weights is
+promoted as JAX promotes it (an f32 context gives f32 keys and values
+against bf16 queries); each inner implementation then computes what the
+reference's does on such mixed inputs.
 """
 from __future__ import annotations
 
@@ -155,6 +161,15 @@ def _pallas_attn(q, k, v, *, causal: bool) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
+def _project(src: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """src (B, S, D) @ w (D, H, Dh) → (B, S, H, Dh), in the promoted dtype
+    of the two (as JAX's ``einsum`` promotes an f32 context against bf16
+    weights)."""
+    dt = torch.promote_types(src.dtype, w.dtype)
+    b, s, dm = src.shape
+    return (src.to(dt) @ w.reshape(dm, -1).to(dt)).view(b, s, w.shape[1], w.shape[2])
+
+
 def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write the new keys and values of every slot at its own length, in
     place.  The reference's ``dynamic_update_slice`` clamps an index past the
@@ -182,6 +197,7 @@ def attention(
     impl: str = "naive",
     rope_theta: float = 10000.0,
     use_rope: bool = True,
+    kv_x: torch.Tensor | None = None,
     cache: KVCache | None = None,
     mode: str = "train",
     block: int = 512,
@@ -189,7 +205,9 @@ def attention(
     """Full attention sublayer: qkv projection → rope → attention → output
     projection.  Returns (output, cache): in ``prefill`` mode a new cache of
     the prompt's K/V, in ``decode`` mode ``cache`` itself, updated in place;
-    None in ``train`` mode.  ``block`` is the chunked route's KV block."""
+    None in ``train`` mode.  ``block`` is the chunked route's KV block.
+    ``kv_x`` (B, Sk, D): the cross-attention source of the keys and values
+    (only queries rotate)."""
     if impl not in ("naive", "chunked", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if mode not in ("train", "prefill", "decode"):
@@ -202,11 +220,11 @@ def attention(
     b, s, dm = x.shape
     wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
     q = (x @ wq.reshape(dm, -1)).view(b, s, wq.shape[1], wq.shape[2])
-    k = (x @ wk.reshape(dm, -1)).view(b, s, wk.shape[1], wk.shape[2])
-    v = (x @ wv.reshape(dm, -1)).view(b, s, wv.shape[1], wv.shape[2])
+    k, v = (_project(x if kv_x is None else kv_x, w) for w in (wk, wv))
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
-        k = apply_rope(k, positions, rope_theta)
+        if kv_x is None:  # self-attention: keys rotate with their own positions
+            k = apply_rope(k, positions, rope_theta)
 
     new_cache = None
     k_len = None

@@ -5,11 +5,14 @@ A *block* is a pre-norm mixer (+ residual) then a pre-norm FFN
 ``mixer.wq``, ``ffn.w_gate`` …), so the reference's params carry over one
 for one; serving and training read the same tensors, and gradients flow to
 those that require them.  Every block owns a cache slot: a ``KVCache`` for
-attention, the SSM state for Mamba, ``None`` otherwise.
+causal attention, the recurrent state for Mamba (B, H, N, P), the mLSTM
+(B, H, P, P) and the sLSTM (a tuple (c, n, m)), ``None`` for the encoder's
+non-causal attention and for cross-attention, which recompute their keys and
+values from the encoder's frames or the (fixed) context at every call.
 
-Ported mixers: ``attn`` and ``mamba``; FFNs: ``dense``, ``moe`` and
-``none``.  Cross-attention (``xattn``), the encoder's ``attn_nc``, mLSTM
-and sLSTM raise.
+Mixers: ``attn`` (causal), ``attn_nc`` (the encoder's non-causal),
+``xattn`` (cross-attention to ``context``), ``mamba``, ``mlstm``,
+``slstm``; FFNs: ``dense``, ``moe`` and ``none``.
 """
 from __future__ import annotations
 
@@ -21,22 +24,26 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, attention, init_attention
 from repro_torch.models.layers import init_mlp, mlp, rms_norm
-from repro_torch.models.ssm import init_mamba, mamba, mamba_state_shape
+from repro_torch.models.ssm import (
+    init_mamba,
+    init_mlstm,
+    init_slstm,
+    mamba,
+    mamba_state_shape,
+    mlstm,
+    mlstm_state_shape,
+    slstm,
+    slstm_state,
+)
 
-Cache = Any  # KVCache | torch.Tensor (SSM state) | None
+Cache = Any  # KVCache | torch.Tensor (SSM state) | tuple (sLSTM state) | None
 
-_NOT_PORTED = {
-    "xattn": "cross-attention (xattn) is not ported yet (ROADMAP A12)",
-    "attn_nc": "the encoder's non-causal attention (attn_nc) is not ported yet (ROADMAP A12)",
-    "mlstm": "the mLSTM mixer is not ported yet (ROADMAP A12)",
-    "slstm": "the sLSTM mixer is not ported yet (ROADMAP A12)",
-}
+_MIXERS = ("attn", "attn_nc", "xattn", "mamba", "mlstm", "slstm")
+_ATTENTION = ("attn", "attn_nc", "xattn")
 
 
 def check_block_kinds(mixer: str, ffn: str) -> None:
-    if mixer in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[mixer])
-    if mixer not in ("attn", "mamba"):
+    if mixer not in _MIXERS:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("dense", "moe", "none"):
         raise ValueError(f"unknown ffn {ffn!r}")
@@ -48,12 +55,17 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dty
     check_block_kinds(mixer, ffn)
     dev = gen.device
     p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)}
-    if mixer == "attn":
+    if mixer in _ATTENTION:
         p["mixer"] = init_attention(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
                                     cfg.head_dim, dtype)
-    else:
+    elif mixer == "mamba":
         p["mixer"] = init_mamba(gen, cfg.d_model, expand=cfg.ssm_expand,
                                 head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state_dim, dtype=dtype)
+    elif mixer == "mlstm":
+        p["mixer"] = init_mlstm(gen, cfg.d_model, expand=cfg.ssm_expand,
+                                head_dim=cfg.ssm_head_dim, dtype=dtype)
+    else:
+        p["mixer"] = init_slstm(gen, cfg.d_model, dtype=dtype)
     if ffn != "none":
         p["norm2"] = torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)
         p["ffn"] = (init_mlp(gen, cfg.d_model, cfg.d_ff, dtype) if ffn == "dense"
@@ -63,16 +75,25 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dty
 
 def init_block_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int, dtype,
                      device) -> Cache:
-    """Zeroed cache for one block (length 0)."""
+    """Zeroed cache for one block (length 0); ``None`` for the stateless
+    ``attn_nc`` and ``xattn``."""
     check_block_kinds(mixer, "none")
     if mixer == "attn":
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros((batch,), dtype=torch.int32, device=device))
-    return torch.zeros(mamba_state_shape(cfg.d_model, expand=cfg.ssm_expand,
-                                         head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state_dim,
-                                         batch=batch), dtype=torch.float32, device=device)
+    if mixer == "mamba":
+        shape = mamba_state_shape(cfg.d_model, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                                  d_state=cfg.ssm_state_dim, batch=batch)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if mixer == "mlstm":
+        shape = mlstm_state_shape(cfg.d_model, expand=cfg.ssm_expand, head_dim=cfg.ssm_head_dim,
+                                  batch=batch)
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+    if mixer == "slstm":
+        return slstm_state(batch, cfg.d_model, device)
+    return None
 
 
 def apply_block(
@@ -84,33 +105,45 @@ def apply_block(
     positions: torch.Tensor,
     cache: Cache,
     mode: str,
+    context: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, Cache]:
     """One block (weights ``p``, (mixer, ffn) ``kinds``) over x (B, S, D).
     Returns (x, the block's new cache): prefill fills ``cache`` (the
-    template) in place, decode updates it."""
+    template) in place, decode updates it.  ``context`` (B, Nctx, D) is what
+    ``xattn`` attends to.  ``attn_nc`` and ``xattn`` run in train mode with
+    no cache in every mode (decode too), as in the reference."""
     mixer, ffn = kinds
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache: Cache = None
-    if mixer == "attn":
+    if mixer in _ATTENTION:
+        causal = mixer == "attn"
+        if mixer == "xattn" and context is None:
+            raise ValueError("a cross-attention block needs a context")
         y, kvc = attention(
             p["mixer"], h, positions,
-            causal=True,
+            causal=causal,
             impl=cfg.attention_impl,
             rope_theta=cfg.rope_theta,
-            use_rope=cfg.use_rope,
-            cache=cache if mode == "decode" else None,
-            mode=mode,
+            use_rope=cfg.use_rope and mixer != "xattn",  # the reference rotates no cross q
+            kv_x=context if mixer == "xattn" else None,
+            cache=cache if causal and mode == "decode" else None,
+            mode=mode if causal else "train",
             block=cfg.attn_block,
         )
-        if mode == "decode":
+        if causal and mode == "decode":
             new_cache = kvc
-        elif mode == "prefill":
+        elif causal and mode == "prefill":
             new_cache = _fit_cache(kvc, cache)
     else:
         # decode is the sequential one-token update whatever the impl
-        y, st = mamba(p["mixer"], h, chunk=cfg.ssm_chunk,
-                      state=cache if mode == "decode" else None, mode=mode,
-                      impl=cfg.ssm_impl if mode != "decode" else "chunked")
+        state = cache if mode == "decode" else None
+        if mixer == "mamba":
+            y, st = mamba(p["mixer"], h, chunk=cfg.ssm_chunk, state=state, mode=mode,
+                          impl=cfg.ssm_impl if mode != "decode" else "chunked")
+        elif mixer == "mlstm":
+            y, st = mlstm(p["mixer"], h, chunk=cfg.ssm_chunk, state=state, mode=mode)
+        else:
+            y, st = slstm(p["mixer"], h, state=state, mode=mode)
         if mode in ("prefill", "decode"):
             new_cache = st
     x = x + y

@@ -1,14 +1,20 @@
-"""Decoder-only language model: embed → blocks → norm → logits.  The port of
-``repro/models/lm.py``.
+"""Language model: embed → blocks → norm → logits.  The port of
+``repro/models/lm.py``, every family of the reference: decoder-only dense,
+MoE, SSM (Mamba, xLSTM) and hybrid; encoder-decoder (whisper: an encoder
+stack over precomputed frame embeddings, the stub of the conv frontend, and
+a decoder that interleaves self- and cross-attention); and cross-attention
+to a context of patch embeddings (llama-3.2-vision).
 
 The reference stacks its ``n_groups`` identical groups and scans them; here
 the ``num_layers`` blocks run in an explicit loop, and the caches are a
 per-layer list with the batch at dim 0.
 
 The weights are one tree of tensors in the reference's nested layout —
-``{"embed", "final_norm", "groups": {"b<i>": {...}}}`` — whose
-group-stacked leaves are ``tree.Stacked`` lists of the groups' tensors, so a
-layer reads its own tensor without a slice.  Serving reads the tree as it
+``{"embed", "final_norm", "groups": {"b<i>": {...}}}``, and for an
+encoder-decoder ``"encoder": {"layers": {...}, "final_norm"}`` — whose
+stacked leaves (over the groups, over the encoder's layers) are
+``tree.Stacked`` lists of the tensors, so a layer reads its own tensor
+without a slice.  Serving reads the tree as it
 is; training differentiates it (gradients flow to the tensors that require
 them) and a checkpoint stacks it back into the reference's arrays.
 
@@ -23,7 +29,10 @@ Entry points:
   prefill(params, cfg, tokens, caches)           -> (logits, caches)
   decode_step(params, cfg, token, caches, pos)   -> (logits, caches)
 
-Encoder-decoder models and a ``context`` (cross-attention) raise.
+``forward``, ``loss_fn`` (``batch["context"]``), ``prefill`` and
+``decode_step`` take a ``context`` (B, Nctx, D): the frame embeddings of an
+encoder-decoder (run through the encoder at every call, decode steps too,
+as the reference does), or what ``xattn`` layers attend to.
 """
 from __future__ import annotations
 
@@ -43,12 +52,6 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_config(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder models are not ported yet (ROADMAP A12)")
-
-
 def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
     """(mixer, ffn) of every layer: the pattern repeated ``n_groups`` times."""
     return list(cfg.pattern) * cfg.n_groups
@@ -57,8 +60,8 @@ def layer_kinds(cfg: ModelConfig) -> list[tuple[str, str]]:
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device = "cuda") -> dict:
     """Random weights drawn on ``device`` from a ``torch.Generator`` seeded
     with ``seed`` (the port's own draws: not the reference's numbers), layer
-    by layer: ``embed`` (V, D) (tied unembedding), the blocks, ``final_norm``."""
-    _check_config(cfg)
+    by layer: ``embed`` (V, D) (tied unembedding), the blocks, ``final_norm``,
+    then an encoder-decoder's encoder layers (``attn_nc`` + dense)."""
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -66,8 +69,15 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device: str | torch.device = "cu
     blocks = [init_block(gen, cfg, mixer, ffn, dtype) for mixer, ffn in layer_kinds(cfg)]
     p = len(cfg.pattern)
     groups = {f"b{i}": _stack_dicts(blocks[i::p]) for i in range(p)}
-    return {"embed": table, "groups": groups,
+    params = {"embed": table, "groups": groups,
+              "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)}
+    if cfg.is_encdec:
+        layers = [init_block(gen, cfg, "attn_nc", "dense", dtype)
+                  for _ in range(cfg.encoder_layers)]
+        params["encoder"] = {
+            "layers": _stack_dicts(layers),
             "final_norm": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)}
+    return params
 
 
 def _to_torch(arr, device) -> torch.Tensor:
@@ -107,8 +117,9 @@ def _unstack(node, g: int):
 def params_from_jax(params: dict, cfg: ModelConfig, *, device: str | torch.device = "cuda") -> dict:
     """The reference's ``init_lm`` params (a pytree of numpy arrays) as the
     port's: every group-stacked leaf unstacked along its leading axis, so
-    layer ``g * len(pattern) + i`` reads index ``g`` of ``groups["b<i>"]``."""
-    _check_config(cfg)
+    layer ``g * len(pattern) + i`` reads index ``g`` of ``groups["b<i>"]``;
+    an encoder's stacked layers likewise (encoder layer ``j`` at index
+    ``j``)."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -116,8 +127,13 @@ def params_from_jax(params: dict, cfg: ModelConfig, *, device: str | torch.devic
             return {k: conv(v) for k, v in node.items()}
         return Stacked(_to_torch(node, dev).unbind(0))
 
-    return {"embed": _to_torch(params["embed"], dev), "groups": conv(params["groups"]),
-            "final_norm": _to_torch(params["final_norm"], dev)}
+    out = {"embed": _to_torch(params["embed"], dev), "groups": conv(params["groups"]),
+           "final_norm": _to_torch(params["final_norm"], dev)}
+    if cfg.is_encdec:
+        enc = params["encoder"]
+        out["encoder"] = {"layers": conv(enc["layers"]),
+                          "final_norm": _to_torch(enc["final_norm"], dev)}
+    return out
 
 
 def params_to_jax(params: dict) -> dict:
@@ -142,6 +158,23 @@ def layer_params(params: dict, cfg: ModelConfig) -> list[dict]:
             for g in range(cfg.n_groups) for i in range(p)]
 
 
+def encoder_layer_params(params: dict, cfg: ModelConfig) -> list[dict]:
+    """Each encoder layer's block weights, in order."""
+    return [_unstack(params["encoder"]["layers"], j) for j in range(cfg.encoder_layers)]
+
+
+def run_encoder(params: dict, cfg: ModelConfig, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over precomputed frame embeddings (B, Nf, D) (the conv
+    frontend's stub), already in the activation dtype: ``attn_nc`` + dense
+    blocks at positions 0..Nf-1, then the encoder's final RMSNorm."""
+    pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames
+    for block in encoder_layer_params(params, cfg):
+        x, _ = apply_block(block, x, cfg=cfg, kinds=("attn_nc", "dense"), positions=pos,
+                           cache=None, mode="train")
+    return rms_norm(x, params["encoder"]["final_norm"], cfg.norm_eps)
+
+
 def forward(
     params: dict,
     cfg: ModelConfig,
@@ -156,16 +189,23 @@ def forward(
     (``None`` unless ``caches`` were given).  With ``cfg.remat`` and
     gradients on, each group of
     ``len(cfg.pattern)`` layers is recomputed in backward (the reference's
-    ``jax.checkpoint`` around its scanned group)."""
-    _check_config(cfg)
-    if context is not None:
-        raise NotImplementedError("a cross-attention context is not ported yet (ROADMAP A12)")
+    ``jax.checkpoint`` around its scanned group).  ``context``: an
+    encoder-decoder's frame embeddings (cast to the activation dtype and
+    run through the encoder), else what the ``xattn`` layers attend to, as
+    given."""
     table, final_norm = params["embed"], params["final_norm"]
     blocks = layer_params(params, cfg)
     dev = table.device
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
     x = embed(tokens, table)
+    if context is not None:
+        context = torch.as_tensor(context, device=dev)
+    if cfg.is_encdec:
+        if context is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder model needs frame embeddings "
+                             "(context)")
+        context = run_encoder(params, cfg, context.to(x.dtype))
     if isinstance(pos0, int):   # no host-to-device copy (it would wait for the stream)
         positions = pos0 + torch.arange(s, device=dev)[None, :]
     else:
@@ -179,7 +219,7 @@ def forward(
         def group(x, lo):
             for i in range(lo, lo + p):
                 x, _ = apply_block(blocks[i], x, cfg=cfg, positions=positions, cache=None,
-                                   mode=mode, kinds=kinds[i])
+                                   mode=mode, kinds=kinds[i], context=context)
             return x
 
         for lo in range(0, len(blocks), p):
@@ -190,7 +230,7 @@ def forward(
         for i, block in enumerate(blocks):
             x, nc = apply_block(block, x, cfg=cfg, positions=positions,
                                 cache=None if caches is None else caches[i], mode=mode,
-                                kinds=kinds[i])
+                                kinds=kinds[i], context=context)
             if new_caches is not None:
                 new_caches.append(nc)
     x = rms_norm(x, final_norm, cfg.norm_eps)
@@ -200,13 +240,14 @@ def forward(
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy (the reference's ``loss_fn``).  ``batch``:
     tokens (B, S), labels (B, S), optional ``loss_mask`` (B, S), optional
-    example ``weights`` (B,) (MILO's plan weights).
+    example ``weights`` (B,) (MILO's plan weights), optional ``context``
+    (B, Nctx, D).
 
     The log-sum-exp runs over the f32-upcast shifted logits; the label's
     logit is gathered (the value the reference's one-hot contraction gives,
     without a (B, S, V) one-hot).  The loss is ``Σ nll · mask / max(Σ mask,
     1)`` with ``mask = loss_mask · weights[:, None]``."""
-    logits, _ = forward(params, cfg, batch["tokens"], mode="train")
+    logits, _ = forward(params, cfg, batch["tokens"], context=batch.get("context"), mode="train")
     dev = logits.device
     labels = torch.as_tensor(batch["labels"], device=dev).long()
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
@@ -225,7 +266,8 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 device: str | torch.device = "cuda") -> list:
-    """One zeroed cache per layer (batch at dim 0)."""
+    """One zeroed cache per layer (batch at dim 0; ``None`` for the
+    stateless ``xattn`` layers)."""
     dev = resolve_device(device)
     return [init_block_cache(cfg, mixer, batch, cache_len, _dtype(cfg), dev)
             for mixer, _ in layer_kinds(cfg)]

@@ -1,14 +1,17 @@
-"""State-space mixer: Mamba in the SSD (Mamba-2) form — the port of the
-Mamba part of ``repro/models/ssm.py``, forward only.
+"""State-space and recurrent mixers — the port of ``repro/models/ssm.py``:
+Mamba in the SSD (Mamba-2) form, xLSTM's mLSTM and sLSTM.
 
 Recurrence (per head h, chunk length L):
     h_t = a_t h_{t-1} + (dt_t b_t) x_tᵀ        a_t = exp(-softplus(A) dt_t)
     y_t = c_tᵀ h_t
 
-Prefill runs the chunked form: the plain version (``ssm_impl="chunked"``)
-or the hand-written CUDA kernel, one launch per chunk (``"pallas"``).
-Decode is the sequential one-token update, as in the reference.  mLSTM and
-sLSTM are not ported yet.
+Mamba's prefill runs the chunked form: the plain version
+(``ssm_impl="chunked"``) or the hand-written CUDA kernel, one launch per
+chunk (``"pallas"``).  The mLSTM's matrix memory C_t = f_t C + i_t v kᵀ is
+the same recurrence with N = P and b, c per head; it runs the plain chunked
+scan, as in the reference (no kernel).  The sLSTM is a sequential
+recurrence, a Python loop over time here (the reference's ``lax.scan``).
+Decode is the sequential one-token update of each, as in the reference.
 """
 from __future__ import annotations
 
@@ -107,9 +110,139 @@ def mamba_state_shape(d_model: int, *, expand: int = 2, head_dim: int = 64, d_st
     return (batch, h, d_state, head_dim)
 
 
-def mlstm(*args, **kwargs):
-    raise NotImplementedError("the mLSTM mixer is not ported yet (ROADMAP A12)")
+# --- xLSTM ------------------------------------------------------------------
+
+def init_mlstm(gen, d_model: int, *, expand: int = 2, head_dim: int = 64,
+               dtype=torch.bfloat16) -> dict:
+    """The reference's ``init_mlstm``: the gate matrices are f32."""
+    d_inner = expand * d_model
+    n_heads = d_inner // head_dim
+    dev = gen.device
+    return {
+        "wq": init_dense(gen, d_model, d_inner, dtype),
+        "wk": init_dense(gen, d_model, d_inner, dtype),
+        "wv": init_dense(gen, d_model, d_inner, dtype),
+        "w_fgate": init_dense(gen, d_model, n_heads, torch.float32),
+        "w_igate": init_dense(gen, d_model, n_heads, torch.float32),
+        "w_z": init_dense(gen, d_model, d_inner, dtype),   # output gate source
+        "w_out": init_dense(gen, d_inner, d_model, dtype),
+        "norm": torch.ones((d_inner,), dtype=torch.float32, device=dev),
+    }
 
 
-def slstm(*args, **kwargs):
-    raise NotImplementedError("the sLSTM mixer is not ported yet (ROADMAP A12)")
+def _ssd_chunk_scan_per_head(x, a, b, c, *, chunk: int):
+    """``_ssd_chunk_scan`` with b and c per head: x (B, S, H, P), a (B, S, H),
+    b, c (B, S, H, N).  The heads fold into the batch (the reference vmaps
+    the scan over them).  Returns y (B, S, H, P) and the final state
+    (B, H, N, P)."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+
+    def fold(t):  # (B, S, H, ...) -> (B·H, S, ...)
+        return t.transpose(1, 2).reshape(B * H, S, *t.shape[3:])
+
+    y, h = ssd_scan_ref(fold(x)[:, :, None], fold(a)[:, :, None], fold(b), fold(c), chunk=chunk)
+    return y[:, :, 0].reshape(B, H, S, P).transpose(1, 2), h[:, 0].reshape(B, H, N, P)
+
+
+def mlstm(params, x: torch.Tensor, *, chunk: int = 256, state: torch.Tensor | None = None,
+          mode: str = "train") -> tuple[torch.Tensor, torch.Tensor | None]:
+    """mLSTM matrix-memory mixer over x (B, S, D): C_t = f_t C_{t-1} +
+    i_t v_t k_tᵀ, y_t = C_t q_t — the linear recurrence with a = f (a
+    sigmoid), values i·v, b = k (scaled by 1/√P), c = q, per head, N = P.
+
+    ``mode='decode'``: S == 1, one update of ``state`` (B, H, P, P).
+    ``prefill`` returns the final state, ``train`` None."""
+    B, S, D = x.shape
+    d_inner = params["wq"].shape[-1]
+    n_heads = params["w_fgate"].shape[-1]
+    P = d_inner // n_heads
+    q = (x @ params["wq"]).reshape(B, S, n_heads, P)
+    k = (x @ params["wk"]).reshape(B, S, n_heads, P) / (P ** 0.5)
+    v = (x @ params["wv"]).reshape(B, S, n_heads, P)
+    x32 = x.float()
+    f = torch.sigmoid(x32 @ params["w_fgate"])                              # (B, S, H)
+    i = torch.exp(-_softplus(-(x32 @ params["w_igate"])))
+    vals = v.float() * i[..., None]
+    if mode == "decode":
+        if state is None or S != 1:
+            raise ValueError("decode mode takes one token and a state")
+        h_new = f[:, 0, :, None, None] * state + torch.einsum(
+            "bhn,bhp->bhnp", k[:, 0].float(), vals[:, 0])
+        y = torch.einsum("bhn,bhnp->bhp", q[:, 0].float(), h_new)[:, None]
+        new_state = h_new
+    else:
+        y, st = _ssd_chunk_scan_per_head(vals, f, k.float(), q.float(), chunk=chunk)
+        new_state = st if mode == "prefill" else None
+    y = y.reshape(B, S, d_inner)
+    var = torch.mean(y * y, dim=-1, keepdim=True)
+    y = y * torch.rsqrt(var + 1e-6) * params["norm"]
+    y = y * F.silu((x @ params["w_z"]).float())
+    return y.to(x.dtype) @ params["w_out"], new_state
+
+
+def init_slstm(gen, d_model: int, *, dtype=torch.bfloat16) -> dict:
+    """The reference's ``init_slstm``: the three gate matrices are f32."""
+    return {
+        "w_z": init_dense(gen, d_model, d_model, dtype),
+        "w_i": init_dense(gen, d_model, d_model, torch.float32),
+        "w_f": init_dense(gen, d_model, d_model, torch.float32),
+        "w_o": init_dense(gen, d_model, d_model, torch.float32),
+        "w_out": init_dense(gen, d_model, d_model, dtype),
+    }
+
+
+def slstm_state(batch: int, d_model: int, device) -> tuple[torch.Tensor, ...]:
+    """The sLSTM's zero state (c, n, m), each (B, D) f32; m, the log-space
+    stabiliser, starts at -1e30."""
+    z = torch.zeros((batch, d_model), dtype=torch.float32, device=device)
+    # c and n apart: a serving pool's slot is written into each in place
+    return (z, z.clone(), torch.full((batch, d_model), -1e30, dtype=torch.float32, device=device))
+
+
+def _slstm_step(carry, zt, it, ft, ot):
+    c, n, m = carry
+    m_new = torch.maximum(ft + m, it)           # log-space stabilisation
+    i_s = torch.exp(it - m_new)
+    f_s = torch.exp(ft + m - m_new)
+    c_new = f_s * c + i_s * zt
+    n_new = f_s * n + i_s
+    h = ot * c_new / torch.clamp_min(n_new, 1e-6)
+    return (c_new, n_new, m_new), h
+
+
+def slstm(params, x: torch.Tensor, *, state=None,
+          mode: str = "train") -> tuple[torch.Tensor, tuple | None]:
+    """sLSTM over x (B, S, D): the sequential scalar-memory LSTM with
+    exponential gating, one step per token (a Python loop over S).  State
+    (c, n, m): cell, normaliser and log-max stabiliser, each (B, D) f32.
+
+    ``mode='decode'``: S == 1, one step from ``state``.  ``prefill``
+    returns the final state, ``train`` None."""
+    B, S, D = x.shape
+    x32 = x.float()
+    z = torch.tanh((x @ params["w_z"]).float())
+    ig = x32 @ params["w_i"]
+    fg = x32 @ params["w_f"]
+    og = torch.sigmoid(x32 @ params["w_o"])
+    if mode == "decode":
+        if state is None or S != 1:
+            raise ValueError("decode mode takes one token and a state")
+        carry, h = _slstm_step(tuple(state), z[:, 0], ig[:, 0], fg[:, 0], og[:, 0])
+        y = h[:, None]
+        new_state = carry
+    else:
+        carry = slstm_state(B, D, x.device)
+        hs = []
+        for t in range(S):
+            carry, h = _slstm_step(carry, z[:, t], ig[:, t], fg[:, t], og[:, t])
+            hs.append(h)
+        y = torch.stack(hs, dim=1)
+        new_state = carry if mode == "prefill" else None
+    return y.to(x.dtype) @ params["w_out"], new_state
+
+
+def mlstm_state_shape(d_model: int, *, expand: int = 2, head_dim: int = 64, batch: int = 1):
+    d_inner = expand * d_model
+    h = d_inner // head_dim
+    return (batch, h, head_dim, head_dim)

@@ -23,6 +23,18 @@ from repro_torch.models import lm
 from repro_torch.models.attention import KVCache
 
 
+def _leaves(cache) -> list[torch.Tensor]:
+    """A block's cache as its tensors: a ``KVCache``'s k, v and length, a
+    state tensor, the members of a state tuple; none for ``None``."""
+    if cache is None:
+        return []
+    if isinstance(cache, KVCache):
+        return [cache.k, cache.v, cache.length]
+    if isinstance(cache, tuple):
+        return list(cache)
+    return [cache]
+
+
 @dataclasses.dataclass
 class Request:
     rid: int
@@ -67,14 +79,12 @@ class ServeEngine:
             logits, cache1 = lm.prefill(self.model, self.cfg, prompt, cache1)
             first = int(torch.argmax(logits[0, -1]))
             req.generated.append(first)
-            # copy the request's prefill state into the pool at ``slot``
+            # copy the request's prefill state into the pool at ``slot``:
+            # every cache leaf (K/V and lengths, an SSM state, each member
+            # of an sLSTM's (c, n, m)) has the batch at dim 0
             for pool, one in zip(self.caches, cache1):
-                if isinstance(pool, KVCache):
-                    pool.k[slot:slot + 1].copy_(one.k)
-                    pool.v[slot:slot + 1].copy_(one.v)
-                    pool.length[slot:slot + 1].copy_(one.length)
-                else:
-                    pool[slot:slot + 1].copy_(one)
+                for dst, src in zip(_leaves(pool), _leaves(one)):
+                    dst[slot:slot + 1].copy_(src)
             self.slot_req[slot] = req
             self.slot_pos[slot] = len(req.prompt)
             self.slot_budget[slot] = req.max_new_tokens - 1

@@ -486,6 +486,89 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, hq, hkv, sq, sk, d
     assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=causal)), "repeat bit-equal"
 
 
+# the encoder-decoder and cross-attention shapes of whisper-small (12 heads
+# of 64: the bf16 kernel's second 64-column panel lies wholly past D) and
+# llama-3.2-vision (64/8 heads of 128 against 1,601 patch tokens): the
+# encoder's non-causal self-attention, a prompt's and a decode step's one
+# query (127 idle rows of the 128-row block) against the context
+CROSS_SWEEP = [(1, 12, 12, 1500, 1500, 64), (1, 12, 12, 1, 1500, 64), (1, 12, 12, 300, 1500, 64),
+               (1, 64, 8, 1, 1601, 128), (1, 64, 8, 739, 1601, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,d", CROSS_SWEEP)
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+def test_flash_attention_kernel_at_the_cross_attention_shapes(cuda_device, b, hq, hkv, sq, sk, d,
+                                                              dtype_name):
+    rng = np.random.default_rng(sq + sk + d)
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)  # the model's (B, S, H, D) views
+               for t in _qkv(rng, b, hq, hkv, sq, sk, d, cuda_device, DTYPES[dtype_name]))
+    before, copies = fa_kernel.launches, fa_ops.copies
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and fa_ops.copies == copies
+    ref = gqa_attention_ref(q, k, v, causal=False).to(q.dtype)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol(dtype_name))
+    assert torch.equal(out, fa_ops.flash_attention(q, k, v, causal=False)), "repeat bit-equal"
+
+
+@pytest.mark.cuda
+def test_flash_attention_mixed_dtypes_take_the_f32_kernel(cuda_device):
+    """A bf16 q against f32 keys and values (cross-attention to an f32
+    context): q is copied to f32 (one counted copy), the f32 kernel runs, the
+    output comes back in q's dtype — the reference kernel's upcast."""
+    rng = np.random.default_rng(2)
+    q, _, _ = _qkv(rng, 1, 8, 2, 5, 130, 64, cuda_device, torch.bfloat16)
+    _, k, v = _qkv(rng, 1, 8, 2, 5, 130, 64, cuda_device, torch.float32)
+    before, copies = fa_kernel.launches, fa_ops.copies
+    out = fa_ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa_kernel.launches == before + 1 and fa_ops.copies == copies + 1
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, fa_kernel.flash_attention_cuda(q.float(), k, v, causal=False)
+                       .to(torch.bfloat16))
+    ref = gqa_attention_ref(q, k, v, causal=False).to(torch.bfloat16)
+    np.testing.assert_allclose(out.float().cpu().numpy(), ref.float().cpu().numpy(),
+                               **_tol("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper-small", "llama-3.2-vision-90b", "xlstm-125m"])
+def test_encdec_and_xlstm_kernel_route_matches_plain(cuda_device, arch):
+    """The smoke configurations on the card: the kernel route's prefill and
+    decode logits against naive attention on the same weights (bf16 bound
+    0.02 relative, the LM phases'); xlstm reaches no kernel."""
+    import dataclasses
+
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(registry.smoke(arch), attention_impl="pallas")
+    plain = dataclasses.replace(cfg, attention_impl="naive")
+    model = lm.init_lm(cfg, seed=0, device=cuda_device)
+    n = cfg.encoder_seq if cfg.is_encdec else cfg.num_context_tokens
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ctx = (torch.randn((1, n, cfg.d_model), generator=gen, device=cuda_device).bfloat16()
+           if n else None)
+    tok = torch.randint(0, cfg.vocab_size, (1, 21), generator=gen, device=cuda_device)
+    before = fa_kernel.launches
+    runs = []
+    for c in (cfg, plain):
+        caches = lm.init_caches(c, 1, 32, cuda_device)
+        pre, caches = lm.prefill(model, c, tok[:, :20], caches, context=ctx)
+        dec, _ = lm.decode_step(model, c, tok[:, 20:], caches, 20, context=ctx)
+        runs.append((pre, dec))
+    torch.cuda.synchronize()
+    n_attn = sum(1 for m, _ in lm.layer_kinds(cfg) if m in ("attn", "xattn"))
+    n_cross = sum(1 for m, _ in lm.layer_kinds(cfg) if m == "xattn")
+    per_call = cfg.encoder_layers  # the encoder runs at every call
+    assert fa_kernel.launches - before == (n_attn + per_call) + (n_cross + per_call)
+    for a, b in zip(*runs):
+        rel = float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+        assert rel < 0.02, (arch, rel)
+
+
 @pytest.mark.cuda
 def test_flash_attention_kernel_strided_and_refusals(cuda_device):
     rng = np.random.default_rng(0)

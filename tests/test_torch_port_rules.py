@@ -118,31 +118,6 @@ def test_unported_knobs_raise(knob, value):
             MiloPreprocessor(device="cpu", **{knob: value})
 
 
-@pytest.mark.parametrize("case", ["mlstm", "slstm", "xattn", "attn_nc", "encdec"])
-def test_unported_lm_paths_raise(case):
-    """Every model path the port does not have yet refuses, naming ROADMAP,
-    instead of quietly running something else."""
-    from repro_torch.configs import registry
-    from repro_torch.models import blocks, lm
-
-    gen = torch.Generator().manual_seed(0)
-    if case == "encdec":
-        cfg = registry.smoke("whisper-small")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init_lm(cfg, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.forward(None, cfg, torch.zeros((1, 2), dtype=torch.long))
-    else:
-        cfg = registry.smoke("xlstm-125m" if case in ("mlstm", "slstm") else "llama-3.2-vision-90b")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.init_block(gen, cfg, case, "dense", torch.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            blocks.init_block_cache(cfg, case, 1, 8, torch.float32, "cpu")
-        if case != "attn_nc":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                lm.init_lm(cfg, device="cpu")
-
-
 @pytest.mark.parametrize("knob", ["trainer_heartbeat_dir", "checkpoint_process_count"])
 def test_unported_training_knobs_raise(knob, tmp_path):
     """The multi-host pieces of training (liveness heartbeats, the two-phase
