@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-20 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-21 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -16,8 +16,9 @@ Phases, in order; any failure ends the run with a non-zero exit:
 4. each kernel's time (CUDA events) beside its plain version, one PyTorch
    library call (or, for the fused gram-free kernels, the fp32 product
    alone as a yardstick) and the card's bound; the gram-free gains at the
-   path's shape (5,000 live rows of 8,192) and with every row live, and the
-   lazy delta, each also on the card alone (calls queued behind a spin
+   path's shape (5,000 live rows of 8,192), with every row live, and at
+   (4,096, 4,096, 768) every row live (a rank's block in phase 21b, and
+   16c's level-0 shape), and the lazy delta, each also on the card alone (calls queued behind a spin
    kernel) and beside its tiled instance (the kernel its ring or small-b
    instance replaced) on both measures; the delta also cold (L2 flushed
    before each call).
@@ -198,6 +199,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
     logits on the kernel route against naive attention and its decode
     logits against the full forward (0.02 relative); the encoder's output
     (b) and the cross-attention sublayer (c), kernel route against plain.
+21. multi-device selection and multi-host execution on phase 7's data
+    (d = 768, class buckets of 8,192): (a) the sharded engines on one rank
+    whose collectives are NCCL calls on the card (graph cut and
+    disparity-min greedy, the SGE bank, lazy facility location and the
+    lazy two-level importance on class 0), each bit-equal to the
+    single-device port; (b) two ranks on the one card, started by the
+    port's ``launch_hosts`` (gloo: NCCL refuses two ranks on one GPU, and
+    asking for it raises; every CUDA tensor a collective moves is staged
+    through host memory, counted), each running
+    ``MiloSession(shard_selection=True, multihost_init=True)``'s
+    preprocess over phase 7's first two classes (a cut: a staged gloo
+    step is ~8 ms) with B2 and B3 on its own 4,096 rows: the ranks'
+    artifacts bit-equal, the SGE bank phase 7's, each WRE trajectory phase
+    7's up to a near-tie, stage times, µs a lazy step, B2
+    and B3 launches per rank and instance, ring hops, staged calls and
+    bytes, peak memory per rank; ``milo_fixed(shard_selection=True)`` the
+    single-device indices; (c) class 0's facility location with int8
+    payloads (2 rounds) against the exact sum, then one byte of rank 1's
+    payload flipped after its checksum: both ranks raise
+    ``CompressionIntegrityError``; (d) two hosts train phase 14's
+    classifier (adaptive_random, k 5,000, batch 32, the step loop) with
+    heartbeats and two-phase checkpoints every 64 steps; ``KillHost``
+    SIGKILLs rank 1 at step 200, the survivor exits with
+    ``HostLossError``, the newest valid checkpoint has 2 shards, and the
+    restarted pair's parameters are bit-equal to an uninterrupted pair's
+    and to one process's.  Scratch files under the git-ignored
+    ``build/phase21/``, removed at the end.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
@@ -205,7 +233,8 @@ phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
 dense ``fl_gains`` kernel, 12 and 20 for flash attention, 13 for the SSD chunk; B1-B3
 also carry their phase 16 launches and errors, B4 its phase 17 launches and
 its time, bound and error at CRAIG's shape, B1 its phase 19 launches, B5
-its phase 20 launches by shape and its times at phase 20's shapes),
+its phase 20 launches by shape and its times at phase 20's shapes, B2 and
+B3 their phase 21 launches per rank),
 the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -678,7 +707,12 @@ def phase_fl_kernel_timing(dev, smi: str) -> dict[str, dict]:
     live_gen = torch.Generator(device=dev).manual_seed(4)
     z_live = rows(live_gen, n, d, dev, torch.float32, True)
     c_live = torch.rand((n,), generator=live_gen, device=dev)
-    for key, zz, cc in (("path", z, c), ("all_live", z_live, c_live)):
+    # and at (4096, 4096, 768), every row live: a rank's block in phase
+    # 21b (two ranks over the 8,192-row bucket) and 16c's level-0 shape
+    z_rank, c_rank = z_live[:4096].contiguous(), c_live[:4096].contiguous()
+    for key, zz, cc in (("path", z, c), ("all_live", z_live, c_live),
+                        ("rank_4096", z_rank, c_rank)):
+        nn = zz.shape[0]
         z_off = misaligned(zz)
         gram_free(fk, zz, zz, cc, "ring")
         gram_free(fk, z_off, zz, cc, "tiled")
@@ -689,9 +723,9 @@ def phase_fl_kernel_timing(dev, smi: str) -> dict[str, dict]:
         plain = cuda_ms(lambda: fr.fl_gains_gram_free_ref(zz, zz, cc), iters=5)
         prod = cuda_ms(lambda: torch.mm(zz, zz.T))
         n_live = int(torch.isfinite(cc).sum())
-        live_bound = fl_bound_ms("fl_gains_gram_free", n_live, n, d)[0]
-        row = report("fl_gains_gram_free", f"({n}, {n}, {d}), {key} [ring]", ring["ms"], plain,
-                     fl_bound_ms("fl_gains_gram_free", n, n, d), prod)
+        live_bound = fl_bound_ms("fl_gains_gram_free", n_live, nn, d)[0]
+        row = report("fl_gains_gram_free", f"({nn}, {nn}, {d}), {key} [ring]", ring["ms"], plain,
+                     fl_bound_ms("fl_gains_gram_free", nn, nn, d), prod)
         row.update(ring=ring, tiled=tiled, live_rows=n_live, live_bound_ms=live_bound)
         log(f"  on the card alone {ring['alone_ms']:.4f} ms; tiled instance (the kernel the ring "
             f"one replaced) {tiled['ms']:.4f} ms, on the card alone {tiled['alone_ms']:.4f} ms; "
@@ -1021,7 +1055,10 @@ def phase_gram_free_path(dev, x, y, tx, ty, *, epochs: int) -> dict:
         assert reuse.preprocess(x, y).config_hash() == md.config_hash() and reuse.loaded_from_artifact
     log(f"artifact round trip: config_hash {md.config_hash()} reloads equal and is reused")
     return dict(launches=launches, session=session, md=md, instances=instances, gathers=gathers,
-                b2_instances=b2_instances)
+                b2_instances=b2_instances, preprocess_s=t_pre, stage_s=dict(times),
+                peak_mib=None if peak is None else round(peak / 2**20, 1),
+                trajectories=[(r.indices.cpu().numpy(), r.gains.cpu().numpy())
+                              for r, _, _ in runs])
 
 
 def _class0(x, y, session, dev):
@@ -2099,10 +2136,10 @@ def _hier_session(dev, x, y, tx, ty, session_kw: dict, *, epochs: int, label: st
     unions: list = []
     orig_refine = milo_mod.MiloPreprocessor._refine_indices
 
-    def refine_recorded(self, feats_u, k_u, easy):
+    def refine_recorded(self, feats_u, k_u, easy, *rest):
         if not unions:
             unions.append(np.array(feats_u))
-        return orig_refine(self, feats_u, k_u, easy)
+        return orig_refine(self, feats_u, k_u, easy, *rest)
 
     stages = {"gram": "gram_matrix_blocked", "sge": "run_sge", "wre": "greedy_importance",
               "refine": "run_refine"}
@@ -4057,10 +4094,532 @@ def phase_last_families(dev, *, rehearsal: bool, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: multi-device selection and multi-host execution — the sharded
+# engines on torch.distributed (one rank on NCCL; two ranks on the one card
+# through gloo), int8 compression and its integrity check, two-host
+# training with two-phase checkpoints, a killed host and the restart
+# ---------------------------------------------------------------------------
+
+# 21b runs over the first ``classes`` classes: a lazy step of two ranks
+# sharing the card makes four gloo collectives, each staged through host
+# memory (8.25 ms a step, ~42 s a class on an H100's host), so all 10
+# classes would take ~7 minutes (PERF.md section 4 lists the cut).  Two
+# classes, not one: with one partition the preprocessor does not bucket,
+# and phase 7's artifact (bucketed) would not be the one to compare with
+PHASE21_SIZES = {"full": dict(classes=2, k_sharded=512, k_c8=64, mf_rows=4096, mf_k=256,
+                              epochs=2, ckpt_every=64, kill_step=200, barrier_timeout=8.0,
+                              launch_timeout=300.0),
+                 "rehearsal": dict(classes=4, k_sharded=16, k_c8=16, mf_rows=128, mf_k=16,
+                                   epochs=6, ckpt_every=4, kill_step=10, barrier_timeout=10.0,
+                                   launch_timeout=120.0)}
+
+#: the child processes of phase 21: ``phase21_child`` of this file
+PHASE21_CHILD = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+                 "sys.exit(chip_smoke.phase21_child(sys.argv[2:]))")
+
+
+def _phase21_device() -> torch.device:
+    return torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+
+
+def _class_rows(x, y, c: int, dev) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Class ``c``'s ground set as the preprocessor builds it: row-normalised
+    features, zero rows up to the power-of-two bucket; the valid mask; n_c."""
+    from repro_torch.core.milo import _next_pow2
+    from repro_torch.core.similarity import normalize_rows
+
+    feats = torch.as_tensor(x[y == c], device=dev)
+    n_c = feats.shape[0]
+    n_pad = _next_pow2(n_c)
+    z = torch.zeros((n_pad, feats.shape[1]), dtype=torch.float32, device=dev)
+    z[:n_c] = normalize_rows(feats.float())
+    return z, torch.arange(n_pad, device=dev) < n_c, n_c
+
+
+@contextlib.contextmanager
+def _lazy_traces(progress=None):
+    """Record every ``lazy_greedy`` pass: (result, the global n — a rank's
+    ground rows are n / ranks); ``progress(i, seconds)`` after each pass."""
+    from repro_torch.core import greedy as greedy_mod
+
+    runs: list = []
+    orig = greedy_mod.lazy_greedy
+
+    def recorded(fn, K, k, **kwargs):
+        t0 = time.perf_counter()
+        res = orig(fn, K, k, **kwargs)
+        runs.append((res, kwargs.get("n") or K.shape[0]))
+        if progress is not None:
+            progress(len(runs) - 1, time.perf_counter() - t0)
+        return res
+
+    greedy_mod.lazy_greedy = recorded
+    try:
+        yield runs
+    finally:
+        greedy_mod.lazy_greedy = orig
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+
+    return {"fl_gains_gram_free": fk.launches["fl_gains_gram_free"],
+            "fl_gains_gram_free_delta": fk.launches["fl_gains_gram_free_delta"],
+            "instances": _selection_launches()}
+
+
+def _phase21_select(data_path: str, out_dir: str, sizes: dict) -> int:
+    """21b and 21c, on every rank: the session's preprocess over every class
+    with ``shard_selection`` (``multihost_init`` starts the process group),
+    ``milo_fixed(shard_selection=True)``, then class 0's facility location
+    with int8 compression and one corrupted payload."""
+    from repro_torch.core import sharded as sharded_mod
+    from repro_torch.distributed import multihost
+    from repro_torch.distributed.compression import CompressionIntegrityError
+    from repro_torch.distributed.sharding import selection_mesh
+    from repro_torch.selection import MiloSession, build_selector
+    from repro_torch.testing.faults import flip_payload_byte
+
+    dev = _phase21_device()
+    t_start = time.perf_counter()
+
+    def note(*args) -> None:   # progress on stderr: a launch cut at its timeout still shows it
+        print(f"[{time.perf_counter() - t_start:8.2f} s]", *args, file=sys.stderr, flush=True)
+
+    session = MiloSession(total_epochs=12, lr=0.01, device=dev, multihost_init=True,
+                          shard_selection=True, **GRAM_FREE_PATH)
+    rank, mesh = multihost.process_index(), selection_mesh()
+    assert multihost.is_initialized() and mesh.size == 2 and mesh.backend == "gloo", mesh
+    with np.load(data_path) as f:
+        x, y = f["x"], f["y"]
+    keep = y < sizes["classes"]
+    stats: dict = {"rank": rank, "mesh": repr(mesh), "start_s": time.perf_counter() - t_start,
+                   "classes": sizes["classes"]}
+    note(f"rank {rank} of {mesh}: started")
+    # 21b: the artifact over the first ``classes`` classes
+    _reset_launches()
+    mesh.reset_counts()
+    held = _reset_peak(dev)
+    with _stage_times(sharded_mod, {"sge": "sharded_sge", "wre": "sharded_greedy_importance"},
+                      dev) as times, \
+            _lazy_traces(lambda i, dt: note(f"class {i}: WRE pass {dt:.2f} s")) as runs:
+        t0 = time.perf_counter()
+        md = session.preprocess(x[keep], y[keep])
+        _sync(dev)
+        stats["preprocess_s"] = time.perf_counter() - t0
+    note(f"preprocess {stats['preprocess_s']:.2f} s")
+    stats.update(stage_s=dict(times), launches=_launch_counts(), peak_mib=_peak_mib(dev, held),
+                 hops=mesh.hops, collectives=mesh.collectives, staged_calls=mesh.staged_calls,
+                 staged_bytes=mesh.staged_bytes)
+    stats["lazy"] = _lazy_summary(runs, times.get("wre", 0.0))
+    arrays = {"sge": md.sge_subsets, "imp": md.wre_importance, "probs": md.wre_probs,
+              "budgets": md.class_budgets}
+    for c, (r, n) in enumerate(runs):
+        arrays[f"traj_idx_{c}"] = r.indices.cpu().numpy()
+        arrays[f"traj_gains_{c}"] = r.gains.cpu().numpy()
+    assert stats["launches"]["fl_gains_gram_free"] > 0 or dev.type == "cpu", stats["launches"]
+    # milo_fixed with shard_selection: sharded disparity-min
+    mf = x[y == 0][:sizes["mf_rows"]]
+    arrays["milo_fixed"] = build_selector("milo_fixed", features=mf, k=sizes["mf_k"],
+                                          shard_selection=True, device=dev).plan(0).indices
+    # 21c: int8 compression on class 0, then one payload corrupted in flight
+    z, valid, n_c = _class_rows(x, y, 0, dev)
+    exact = sharded_mod.make_sharded_gram_free("facility_location", mesh=mesh,
+                                               use_pallas=True)
+    comp = sharded_mod.make_sharded_gram_free("facility_location", mesh=mesh,
+                                              use_pallas=True, compress="int8", compress_rounds=2)
+    k = sizes["k_c8"]
+    t0 = time.perf_counter()
+    e = sharded_mod.sharded_greedy(exact, z, k, mesh=mesh, valid=valid)
+    _sync(dev)
+    t_e = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c8 = sharded_mod.sharded_greedy(comp, z, k, mesh=mesh, valid=valid)
+    _sync(dev)
+    stats["c8"] = {"exact_s": t_e, "compressed_s": time.perf_counter() - t0, "k": k}
+    arrays.update(c8_idx=c8.indices.cpu().numpy(), c8_gains=c8.gains.cpu().numpy(),
+                  exact_idx=e.indices.cpu().numpy(), exact_gains=e.gains.cpu().numpy())
+    hook = flip_payload_byte(at_call=sharded_mod._payload_calls + 5, process=1, index=7)
+    sharded_mod.payload_hook = hook
+    try:
+        sharded_mod.sharded_greedy(comp, z, 16, mesh=mesh, valid=valid)
+        stats["corrupt"] = "no error"
+    except CompressionIntegrityError as err:
+        stats["corrupt"] = type(err).__name__
+        stats["corrupt_message"] = str(err)[:120]
+    finally:
+        sharded_mod.payload_hook = None
+    stats["corrupt_fired"] = hook.fired
+    stats["seconds"] = time.perf_counter() - t_start
+    note(f"done: 21c {stats['c8']}, corrupted payload: {stats['corrupt']}")
+    np.savez(Path(out_dir) / f"select.{rank}.npz", **arrays)
+    with open(Path(out_dir) / f"select.{rank}.json", "w") as f:
+        json.dump(stats, f, default=str)
+    print("PHASE21_SELECT_DONE", rank, flush=True)
+    return 0
+
+
+def _phase21_train(mode: str, data_path: str, ckpt: str, hb: str, out: str, sizes: dict,
+                   dev: torch.device | None = None) -> dict:
+    """21d: phase 14's classifier (d from the data, hidden 64, 4 sub-steps,
+    lr 0.01) on ``adaptive_random`` (k = 10% of the rows), batch 32, on the
+    step loop with heartbeats and two-phase checkpoints; ``mode == "kill"``
+    plants ``KillHost`` on rank 1.  Run by ``launch_hosts`` children (the
+    env triplet starts the group) and, with no env, as one process."""
+    from repro_torch.data.pipeline import Pipeline
+    from repro_torch.distributed import multihost
+    from repro_torch.selection import build_selector
+    from repro_torch.selection import session as S
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = dev or _phase21_device()
+    multihost.initialize(timeout=60.0)
+    with np.load(data_path) as f:
+        x, y = f["x"], f["y"]
+    n, d = x.shape
+    k = max(1, int(round(0.1 * n)))
+    sel = build_selector("adaptive_random", n=n, k=k, R=1, seed=3)
+    pipe = Pipeline(None, sel, 32, seed=1, arrays={"x": x, "y": y}, device=dev)
+    total = sizes["epochs"] * pipe.steps_per_epoch()
+    tr = Trainer(S._classifier_step_fn(4), pipe,
+                 TrainerConfig(epochs=sizes["epochs"], checkpoint_dir=ckpt,
+                               checkpoint_every_steps=sizes["ckpt_every"], async_checkpoint=False,
+                               log_every_steps=1, barrier_timeout=sizes["barrier_timeout"],
+                               heartbeat_dir=None if hb == "none" else hb,
+                               heartbeat_timeout=300.0))
+    if mode == "kill":
+        from repro_torch.testing.faults import KillHost
+
+        tr.monitor = KillHost(sizes["kill_step"], process_to_kill=1)
+    t0 = time.perf_counter()
+    state = tr.fit(S._init_classifier(0, d, int(y.max()) + 1, 64, 0.01, total, dev), resume=True)
+    _sync(dev)
+    seconds = time.perf_counter() - t0
+    flat = {f"p_{key}": v.detach().cpu().numpy() for key, v in state.params.items()}
+    flat.update({f"m_{key}": v.cpu().numpy() for key, v in state.mom.items()})
+    rank = multihost.process_index()
+    np.savez(f"{out}.{rank}.npz", step=int(state.step), **flat)
+    print("PHASE21_TRAIN_DONE", rank, int(state.step), flush=True)
+    return {"seconds": seconds, "steps": int(state.step), "spe": pipe.steps_per_epoch(),
+            "ckpt_save_s": tr.ckpt.last_save.get("write_s") if tr.ckpt else None}
+
+
+def phase21_child(argv: list[str]) -> int:
+    """Entry point of phase 21's child processes (see ``PHASE21_CHILD``)."""
+    role, sizes = argv[0], json.loads(argv[1])
+    if role == "select":
+        return _phase21_select(argv[2], argv[3], sizes)
+    if role == "train":
+        _phase21_train(argv[2], argv[3], argv[4], argv[5], argv[6], sizes)
+        return 0
+    raise ValueError(role)
+
+
+def _launch(role: str, args: list[str], sizes: dict, *, timeout: float) -> tuple[list, float]:
+    """Two ranks of ``phase21_child`` through the port's ``launch_hosts``."""
+    from repro_torch.testing.faults import launch_hosts
+
+    env = {"PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "4"}
+    t0 = time.perf_counter()
+    res = launch_hosts(PHASE21_CHILD, [str(ROOT), role, json.dumps(sizes), *args],
+                       num_processes=2, env=env, cwd=str(ROOT), timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def _class_banks(sge: np.ndarray, labels: np.ndarray, budgets) -> list[np.ndarray]:
+    """Each class's bank in local (within-class) indices: the merged bank
+    holds class c's k_c columns after the classes before it."""
+    out, off = [], 0
+    for c, k_c in enumerate(np.asarray(budgets).tolist()):
+        rows = np.flatnonzero(labels == c)
+        out.append(np.searchsorted(rows, sge[:, off:off + k_c]))
+        off += k_c
+    return out
+
+
+def _first_parting(a: np.ndarray, b: np.ndarray, ga: np.ndarray, gb: np.ndarray) -> dict:
+    parted = np.nonzero(a != b)[0]
+    if not len(parted):
+        return {"step": None}
+    t = int(parted[0])
+    return {"step": t, "gap": abs(float(ga[t]) - float(gb[t])),
+            "bound": 4 * float(np.spacing(np.float32(gb[0]))) + 1e-5 * abs(float(gb[t]))}
+
+
+def phase_sharded_one_rank(dev, x, y, *, sizes: dict) -> dict:
+    """21a: the sharded engines on one rank whose collectives are real NCCL
+    calls on the card (gloo on the CPU): bit-equal to the single-device port."""
+    from repro_torch.core import greedy as greedy_mod
+    from repro_torch.core import gram_free as gf
+    from repro_torch.core import sharded as sharded_mod
+    from repro_torch.distributed.sharding import selection_mesh
+
+    dist = torch.distributed
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    log(f"== phase 21a: the sharded engines on one {backend} rank, class 0")
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = selection_mesh()
+        assert mesh.size == 1 and mesh.group is not None and mesh.backend == backend, mesh
+        z, valid, n_c = _class_rows(x, y, 0, dev)
+        n = z.shape[0]
+        k = sizes["k_sharded"]
+        budget = max(1, int(n * 0.125))
+        fl = gf.make_gram_free_facility_location(use_pallas=True)
+        fl_sh = sharded_mod.make_sharded_gram_free("facility_location", mesh=mesh,
+                                                   use_pallas=True)
+        sh = {name: sharded_mod.make_sharded_gram_free(name, mesh=mesh)
+              for name in ("graph_cut", "disparity_min")}
+        gen = lambda: torch.Generator(device=dev).manual_seed(0)  # noqa: E731
+        # the single-device port first; then the sharded engines alone, their
+        # own B2 / B3 launches and collectives counted from 0
+        single = {}
+        for name in ("graph_cut", "disparity_min"):
+            a = greedy_mod.greedy(gf.get_gram_free(name), z, k, valid=valid)
+            single[f"greedy {name}"] = (a.indices, a.gains)
+        a = greedy_mod.sge(gf.get_gram_free("graph_cut"), z, k, n_subsets=8, valid=valid,
+                           generator=gen())
+        single["sge bank"] = (a, a.float())
+        a = greedy_mod.lazy_greedy(fl, z, k, budget=budget, valid=valid)
+        single["lazy facility location"] = (a.indices, a.gains)
+        a = greedy_mod.greedy_importance(fl, z, valid=valid, lazy_budget=budget,
+                                         lazy_two_level=True)
+        single["importance (lazy, two-level)"] = (a, a)
+        _sync(dev)
+        _reset_launches()
+        mesh.reset_counts()
+        t0 = time.perf_counter()
+        sharded = {}
+        for name in ("graph_cut", "disparity_min"):
+            b = sharded_mod.sharded_greedy(sh[name], z, k, mesh=mesh, valid=valid)
+            sharded[f"greedy {name}"] = (b.indices, b.gains)
+        b = sharded_mod.sharded_sge(sh["graph_cut"], z, k, n_subsets=8, mesh=mesh, valid=valid,
+                                    generator=gen())
+        sharded["sge bank"] = (b, b.float())
+        b = sharded_mod.sharded_lazy_greedy(fl_sh, z, k, budget=budget, mesh=mesh, valid=valid)
+        sharded["lazy facility location"] = (b.indices, b.gains)
+        b = sharded_mod.sharded_greedy_importance(fl_sh, z, mesh=mesh, valid=valid,
+                                                  lazy_budget=budget, lazy_two_level=True)
+        sharded["importance (lazy, two-level)"] = (b, b)
+        _sync(dev)
+        seconds = time.perf_counter() - t0
+        launches = _launch_counts()
+        pairs = {label: single[label] + sharded[label] for label in single}
+        for label, (ai, ag, bi, bg) in pairs.items():
+            _bit_equal(f"21a {label}: indices", ai, bi)
+            _bit_equal(f"21a {label}: values", ag, bg)
+        counts = dict(collectives=mesh.collectives, hops=mesh.hops,
+                      staged_calls=mesh.staged_calls)
+        log(f"21a: {len(pairs)} engine runs on n {n} ({n_c} live), k {k}, lazy budget {budget}: "
+            f"bit-equal to the single-device port; {counts['collectives']} {backend} collectives "
+            f"(0 ring hops at one rank, {counts['staged_calls']} staged); the sharded engines' "
+            f"B2 and B3 launches {launches['fl_gains_gram_free']} / "
+            f"{launches['fl_gains_gram_free_delta']}; {seconds:.3f} s")
+        assert counts["staged_calls"] == 0 and counts["collectives"] > 0, counts
+        if dev.type == "cuda":
+            assert launches["fl_gains_gram_free"] > 0 and launches["fl_gains_gram_free_delta"] > 0
+    finally:
+        dist.destroy_process_group()
+    return {"seconds": seconds, "n": n, "live": n_c, "k": k, "budget": budget,
+            "launches": launches, **counts}
+
+
+def phase_sharded_two_ranks(dev, x, y, gf7: dict, *, sizes: dict, work: Path) -> dict:
+    """21b and 21c: two ranks on the one card (gloo: NCCL refuses two ranks
+    on one GPU), every CUDA tensor staged through host memory."""
+    from repro_torch.distributed import multihost
+    from repro_torch.selection import build_selector
+
+    log(f"== phase 21b: two ranks (launch_hosts, gloo, staged) run MiloSession(shard_selection="
+        f"True, multihost_init=True) over the first {sizes['classes']} classes of phase 7's data")
+    if dev.type == "cuda" and torch.cuda.device_count() < 2:
+        try:
+            multihost.choose_backend("nccl", 2)
+            raise AssertionError("NCCL for two ranks on one card did not raise")
+        except ValueError as e:
+            log(f"NCCL asked for two ranks on one card raises: {str(e)[:90]}...")
+    data = work / "data.npz"
+    np.savez(data, x=x, y=y)
+    res, wall = _launch("select", [str(data), str(work)], sizes,
+                        timeout=sizes["launch_timeout"])
+    for r in res:
+        assert r.returncode == 0, (r.process_id, r.returncode, r.stderr[-4000:])
+        assert "PHASE21_SELECT_DONE" in r.stdout
+    for line in res[0].stderr.splitlines():
+        if line.startswith("["):
+            log(f"  rank 0 {line}")
+    stats = [json.load(open(work / f"select.{i}.json")) for i in range(2)]
+    arrs = [dict(np.load(work / f"select.{i}.npz")) for i in range(2)]
+    for key in arrs[0]:
+        _bit_equal(f"21b rank 0 against rank 1: {key}", torch.from_numpy(arrs[0][key]),
+                   torch.from_numpy(arrs[1][key]))
+    log(f"launch of 2 ranks: {wall:.1f} s wall; the two ranks' artifacts, trajectories and "
+        f"21c results bit-equal")
+    md7 = gf7["md"]
+    a = arrs[0]
+    classes = sizes["classes"]
+    keep = y < classes
+    y_sub = y[keep]
+    banks7 = _class_banks(md7.sge_subsets, y, md7.class_budgets)
+    banks = _class_banks(a["sge"], y_sub, a["budgets"])
+    bank = {"equal": True, "classes": classes}
+    for c in range(classes):
+        w = min(banks[c].shape[1], banks7[c].shape[1])
+        diff = np.argwhere(banks[c][:, :w] != banks7[c][:, :w])
+        if len(diff):
+            bank.update(equal=False, cls=c, first=diff[0].tolist(), differing=int(len(diff)))
+            break
+    partings = []
+    for c in range(classes):
+        idx7, g7 = gf7["trajectories"][c]
+        partings.append(_first_parting(a[f"traj_idx_{c}"], idx7, a[f"traj_gains_{c}"], g7))
+    for c, p in enumerate(partings):
+        if p["step"] is not None:
+            assert p["gap"] <= p["bound"], f"class {c}: parts from phase 7 at a clear gap {p}"
+    imp7 = md7.wre_importance[keep]
+    for c in range(classes):
+        m = y_sub == c
+        np.testing.assert_allclose(np.sort(a["imp"][m]), np.sort(imp7[m]), rtol=1e-5, atol=1e-5)
+    imp_diff = float(np.abs(a["imp"] - imp7).max())
+    bank_equal = bank["equal"]
+    log(f"21b over classes 0-{classes - 1} against phase 7 (one process): SGE bank per class "
+        f"{'equal' if bank_equal else bank}; WRE "
+        f"trajectories part at {[p['step'] for p in partings]} (gap <= 4 ulps of the first gain "
+        f"+ rtol 1e-5: {[round(p['gap'], 9) if p['step'] is not None else None for p in partings]});"
+        f" importance max |diff| {imp_diff:.3e}, sorted per class within rtol 1e-5")
+    assert bank_equal, f"the SGE bank parts from phase 7's: {bank}"
+    # milo_fixed: the single-device disparity-min indices
+    mf = x[y == 0][:sizes["mf_rows"]]
+    one = build_selector("milo_fixed", features=mf, k=sizes["mf_k"], gram_free=True,
+                         device=dev).plan(0).indices
+    np.testing.assert_array_equal(a["milo_fixed"], one)
+    log(f"milo_fixed(shard_selection=True) on {len(mf)} rows, k {sizes['mf_k']}: the "
+        "single-device disparity-min indices")
+    for s in stats:
+        la = s["launches"]
+        peak = "not measured" if s["peak_mib"] is None else f"{s['peak_mib']:.1f} MiB"
+        log(f"rank {s['rank']}: preprocess {s['preprocess_s']:.3f} s (SGE {s['stage_s']['sge']:.3f}"
+            f", WRE {s['stage_s']['wre']:.3f} s; {s['lazy']['steps']} lazy-engine steps, "
+            f"{s['lazy']['us_per_step']:.1f} us each); B2 {la['fl_gains_gram_free']} "
+            f"({la['instances']['fl_gains_gram_free']}), B3 {la['fl_gains_gram_free_delta']} "
+            f"({la['instances']['fl_gains_gram_free_delta']}); ring hops {s['hops']}, "
+            f"collectives {s['collectives']}, staged {s['staged_calls']} calls / "
+            f"{s['staged_bytes'] / 2**20:.1f} MiB; peak {peak} (phase 7: {gf7['peak_mib']}); "
+            f"process start to done {s['seconds']:.1f} s")
+        if dev.type == "cuda":
+            assert la["fl_gains_gram_free"] > 0 and la["fl_gains_gram_free_delta"] > 0, la
+            assert s["staged_calls"] > 0, "gloo on the card stages every collective"
+        assert s["hops"] > 0
+    log(f"phase 7 (one process): preprocess {gf7['preprocess_s']:.3f} s (SGE "
+        f"{gf7['stage_s']['sge']:.3f}, WRE {gf7['stage_s']['wre']:.3f} s)")
+    # 21c
+    k = stats[0]["c8"]["k"]
+    overlap = len(set(a["c8_idx"].tolist()) & set(a["exact_idx"].tolist()))
+    gain_err = float(np.abs(a["c8_gains"] - a["exact_gains"]).max() /
+                     np.abs(a["exact_gains"]).max())
+    log(f"== phase 21c: int8 compression (2 rounds) on class 0, k {k}: {overlap} of {k} picks "
+        f"shared with the exact run, gain error max {gain_err:.3e} of the largest gain; exact "
+        f"{stats[0]['c8']['exact_s']:.3f} s, compressed {stats[0]['c8']['compressed_s']:.3f} s")
+    for s in stats:
+        assert s["corrupt"] == "CompressionIntegrityError", s["corrupt"]
+    assert [s["corrupt_fired"] for s in stats] == [0, 1], [s["corrupt_fired"] for s in stats]
+    log("a byte of rank 1's 5th compressed payload flipped after its checksum: both ranks raise "
+        "CompressionIntegrityError")
+    assert np.isfinite(a["c8_gains"]).all()
+    return {"wall_s": wall, "ranks": stats, "bank": bank, "partings": partings,
+            "importance_max_abs_diff": imp_diff,
+            "c8": {"k": k, "overlap": overlap, "gain_err": gain_err}}
+
+
+def phase_two_host_training(dev, x, y, *, sizes: dict, work: Path) -> dict:
+    """21d: two hosts train phase 14's classifier with heartbeats and
+    two-phase checkpoints; rank 1 is killed mid-epoch; the pair restarts."""
+    import shutil
+    import signal
+
+    from repro_torch.checkpoint.checkpointer import CheckpointManager
+
+    log("== phase 21d: two-host training, a killed host, the restart")
+    data = work / "data.npz"
+    out = {}
+    ref, out["ref_s"] = _launch("train", ["run", str(data), str(work / "ck_ref"), "none",
+                                          str(work / "ref")], sizes,
+                                timeout=sizes["launch_timeout"])
+    for r in ref:
+        assert r.returncode == 0, (r.process_id, r.stderr[-4000:])
+    one = _phase21_train("run", str(data), str(work / "ck_one"), "none", str(work / "one"),
+                         sizes, dev)
+    ck, hb = work / "ck", work / "hb"
+    dead, out["kill_s"] = _launch("train", ["kill", str(data), str(ck), str(hb),
+                                            str(work / "dead")], sizes,
+                                  timeout=sizes["launch_timeout"])
+    assert dead[1].returncode == -signal.SIGKILL, (dead[1].returncode, dead[1].stderr[-2000:])
+    assert dead[0].returncode != 0, dead[0].returncode
+    assert "PHASE21_TRAIN_DONE" not in dead[0].stdout
+    assert "HostLossError" in dead[0].stderr, dead[0].stderr[-3000:]
+    view = CheckpointManager(str(ck))
+    latest = view.latest_valid_step()
+    man = view.validate_step(latest)
+    assert man["num_shards"] == 2 and man["hosts"] == [0, 1], man
+    assert latest < sizes["kill_step"] + sizes["ckpt_every"], latest
+    lost = [ln for ln in dead[0].stderr.splitlines() if "HostLossError" in ln][-1]
+    log(f"kill at step {sizes['kill_step']}: rank 1 {dead[1].returncode} (SIGKILL), rank 0 "
+        f"{dead[0].returncode}: {lost.strip()[:150]}; latest valid step {latest}, "
+        f"{man['num_shards']} shards, format {man['format']} ({out['kill_s']:.1f} s)")
+    restart, out["restart_s"] = _launch("train", ["run", str(data), str(ck), str(hb),
+                                                  str(work / "res")], sizes,
+                                        timeout=sizes["launch_timeout"])
+    for r in restart:
+        assert r.returncode == 0, (r.process_id, r.stderr[-4000:])
+
+    def load(name):
+        with np.load(work / f"{name}.npz") as f:
+            return {key: f[key] for key in f.files}
+
+    want = load("ref.0")
+    for name in ("ref.1", "one.0", "res.0", "res.1"):
+        got = load(name)
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{name} {key}")
+    log(f"final parameters and momenta at step {int(want['step'])} ({one['spe']} steps an epoch,"
+        f" {sizes['epochs']} epochs, checkpoints every {sizes['ckpt_every']}): the restarted pair"
+        f" bit-equal to the uninterrupted pair and to one process; launches {out['ref_s']:.1f} / "
+        f"{out['kill_s']:.1f} / {out['restart_s']:.1f} s, one process {one['seconds']:.2f} s")
+    out.update(latest=latest, steps=int(want["step"]), one_s=one["seconds"])
+    for name in ("ck_ref", "ck_one", "ck", "hb"):
+        shutil.rmtree(work / name, ignore_errors=True)
+    return out
+
+
+def phase_multi_device(dev, x, y, gf7: dict, *, rehearsal: bool, smi: str) -> dict:
+    """Phase 21: 21a one NCCL rank, 21b-c two ranks on the card, 21d two hosts."""
+    import shutil
+
+    sizes = PHASE21_SIZES["rehearsal" if rehearsal else "full"]
+    log(f"== phase 21: multi-device selection and multi-host execution on {smi}")
+    work = ROOT / "build" / "phase21"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    out = {"21a": phase_sharded_one_rank(dev, x, y, sizes=sizes)}
+    t = time.perf_counter()
+    out["21bc"] = phase_sharded_two_ranks(dev, x, y, gf7, sizes=sizes, work=work)
+    out["21bc"]["seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["21d"] = phase_two_host_training(dev, x, y, sizes=sizes, work=work)
+    out["21d"]["seconds"] = time.perf_counter() - t
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    out["smi"] = smi
+    log("phase 21 summary: " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-20 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-21 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -4093,6 +4652,8 @@ def main() -> int:
         phase_selection_service(dev, main_run["x"], main_run["y"], main_run["tx"], main_run["ty"],
                                 rehearsal=True, smi="cpu (rehearsal)")
         phase_last_families(dev, rehearsal=True, smi="cpu (rehearsal)")
+        phase_multi_device(dev, main_run["x"], main_run["y"], gf, rehearsal=True,
+                           smi="cpu (rehearsal)")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -4111,9 +4672,11 @@ def main() -> int:
     dense_launches = phase_fl_dense(dev, main_run["x"], main_run["y"], gf["session"])
     sim_launches, gf_launches = main_run["launches"], gf["launches"]
     delta_instances, gathers, b2_instances = gf["instances"], gf["gathers"], gf["b2_instances"]
-    # phases 14-15 train and tune on phase 5's data and artifact
+    # phases 14-15 train and tune on phase 5's data and artifact; phase 21
+    # holds its two-rank run against phase 7's artifact and trajectories
     train_data = {k: main_run[k] for k in ("x", "y", "tx", "ty")}
     md = main_run["session"].metadata
+    gf7 = {k: gf[k] for k in ("md", "preprocess_s", "stage_s", "peak_mib", "trajectories")}
     del main_run, gf
     lm_err = phase_lm_kernel_checks(dev)
     lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
@@ -4129,6 +4692,8 @@ def main() -> int:
     service = phase_selection_service(dev, *train_data.values(), rehearsal=False,
                                       smi=dev_info["smi"])
     families = phase_last_families(dev, rehearsal=False, smi=dev_info["smi"])
+    multi = phase_multi_device(dev, train_data["x"], train_data["y"], gf7, rehearsal=False,
+                               smi=dev_info["smi"])
     phase20_flash = families["20b"]["launches"] + families["20c"]["launches"]
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
@@ -4216,7 +4781,7 @@ def main() -> int:
     b2["times"] = {key: {k: fl_timing[f"fl_gains_gram_free_{key}"][k]
                          for k in ("ring", "tiled", "plain_ms", "product_ms", "bound_ms",
                                    "bound_by", "live_rows", "live_bound_ms")}
-                   for key in ("path", "all_live")}
+                   for key in ("path", "all_live", "rank_4096")}
     b2["instances"] = {
         "ring": {"launches": b2_instances["ring"],
                  "ptxas": ptxas_stats(report, "gram_free_ring_kernel"),
@@ -4231,6 +4796,15 @@ def main() -> int:
         kern["phase16"] = {"launches": {sub: hier[sub]["launches"][kern["name"]]
                                         for sub in ("16b", "16c")},
                            "max_abs_err": hier["16c"]["max_abs_err"][kern["name"]]}
+    # phase 21: each kernel's launches on the sharded path, one NCCL rank
+    # (21a, the sharded engines alone) and each of the two ranks of 21b,
+    # with instances
+    for kern in (b2, delta):
+        kern["phase21"] = {
+            "21a": multi["21a"]["launches"][kern["name"]],
+            "21b_per_rank": [{"launches": r["launches"][kern["name"]],
+                              "instances": r["launches"]["instances"][kern["name"]]}
+                             for r in multi["21bc"]["ranks"]]}
     # phase 17: B4 on CRAIG's path (one launch a greedy step), at its shape
     b4 = next(k for k in kernels if k["name"] == "fl_gains")
     b4["phase17"] = base["17d"]["b4"]

@@ -199,8 +199,11 @@ class MiloFixedSelector:
     too); ``gram_free=True`` runs the selection directly over row-normalized
     features (O(n·d) memory) — identical trajectories, see
     ``repro_torch.core.gram_free``.  The greedy runs on ``device`` (the card
-    unless the caller asks for the CPU).  ``shard_selection=True`` is not
-    ported yet (ROADMAP A11).
+    unless the caller asks for the CPU).  ``shard_selection=True``
+    additionally shards the feature rows over the ranks of the selection
+    mesh (``repro_torch.core.sharded``; implies the gram-free route) — still
+    trajectory-identical, falling back to the local path when n does not
+    divide the mesh or the mesh has one rank.
     """
 
     features: np.ndarray
@@ -210,14 +213,21 @@ class MiloFixedSelector:
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
-        if self.shard_selection:
-            raise NotImplementedError(
-                "milo_fixed with shard_selection=True is not ported yet "
-                "(ROADMAP A11, multi-device selection)")
         z = torch.as_tensor(np.asarray(self.features, np.float32),
                             device=resolve_device(self.device))
-        if self.gram_free:
-            res = greedy(make_gram_free_disparity_min(), normalize_rows(z), self.k)
+        if self.gram_free or self.shard_selection:
+            z = normalize_rows(z)
+            if self.shard_selection:
+                from repro_torch.core import sharded as sharded_mod
+                from repro_torch.distributed.sharding import SELECTION_AXIS, selection_mesh
+
+                mesh = selection_mesh(axis=SELECTION_AXIS)
+                if mesh.size > 1 and z.shape[0] % mesh.size == 0:
+                    fn = sharded_mod.make_sharded_gram_free("disparity_min", mesh=mesh)
+                    res = sharded_mod.sharded_greedy(fn, z, self.k, mesh=mesh)
+                    self._idx = _host_indices(res.indices)
+                    return
+            res = greedy(make_gram_free_disparity_min(), z, self.k)
         else:
             res = greedy(disparity_min, gram_matrix(z), self.k)
         self._idx = _host_indices(res.indices)

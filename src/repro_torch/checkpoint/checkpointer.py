@@ -32,9 +32,32 @@ So a checkpoint written by either package validates and restores in the
 other, leaf for leaf.  ``restore(step, target)`` puts every leaf on the
 device of ``target``'s matching leaf.
 
-Multi-host checkpoints (the reference's two-phase commit across
-``process_count > 1`` hosts) are not ported (ROADMAP A11): such a manager
-refuses at construction.
+**Multi-host (two-phase coordinated commit).**  With ``process_count > 1``
+every host takes part in one distributed checkpoint per step, as in the
+reference:
+
+  1. *Rendezvous + staging*: all hosts meet at a named barrier, then the
+     coordinator (process 0) alone resets ``step_<N>.tmp/`` and a second
+     barrier releases the writers, so a crashed earlier attempt's stale
+     staging can never mix with this one.
+  2. *Phase 1 — local durability*: every host fsyncs its own
+     ``shard_<i>.npz`` plus a host manifest ``host_<i>.json`` carrying its
+     shard's checksum (atomic rename).
+  3. *Phase 2 — validate + atomic publish*: the coordinator waits for every
+     host manifest (a host that never delivers ⇒ ``HostLossError``),
+     re-hashes every shard against its host's checksum, merges them into
+     ONE global ``manifest.json`` (format 3, ``num_shards =
+     process_count``), fsyncs it and renames the directory.  The others
+     block until the publication appears (a coordinator that never
+     publishes ⇒ ``HostLossError``).
+
+  A crash of any host at any instant publishes a complete global checkpoint
+  or nothing, and ``latest_valid_step`` skips a step missing (or holding a
+  torn copy of) any host's shard on every host.  GC runs on the coordinator
+  only.  Real multi-process runs meet at ``multihost.RuntimeBarrier`` (the
+  store of ``multihost.initialize()``); in-process simulated tests inject a
+  ``multihost.FileBarrier``.  Every wait is bounded by ``barrier_timeout``.
+  Single-host checkpoints keep writing format 2, byte for byte as before.
 """
 from __future__ import annotations
 
@@ -52,12 +75,19 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.distributed import multihost
+from repro_torch.distributed.fault_tolerance import HostLossError
 from repro_torch.tree import Stacked
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
 #: manifest format carrying per-file checksums + extra run metadata
 MANIFEST_FORMAT = 2
+
+#: format 3 = a coordinator-published global manifest merging per-host
+#: shard checksums (two-phase multi-host commit); single-host checkpoints
+#: keep writing format 2
+MULTIHOST_MANIFEST_FORMAT = 3
 
 #: bytes per write call when streaming a leaf into the shard
 _CHUNK = 64 << 20
@@ -233,14 +263,6 @@ def _to_tensor(arr: np.ndarray, dtype_name: str | None, device: torch.device) ->
     return t.to(device)
 
 
-def _process() -> tuple[int, int]:
-    """(index, count) of this process in ``torch.distributed``, else (0, 1)."""
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 class CheckpointManager:
     def __init__(
         self,
@@ -249,18 +271,25 @@ class CheckpointManager:
         keep_last: int = 3,
         process_index: int | None = None,
         process_count: int | None = None,
+        barrier: Any | None = None,
+        barrier_timeout: float = 120.0,
+        poll_interval: float = 0.02,
     ):
         """``process_index``/``process_count`` default to ``torch.distributed``'s
-        rank and world size when it is initialised, else 0 and 1.  More than
-        one process needs the reference's two-phase commit, which is not
-        ported: it raises."""
-        rank, world = _process()
-        self.process_index = rank if process_index is None else int(process_index)
-        self.process_count = max(1, world if process_count is None else int(process_count))
-        if self.process_count > 1:
-            raise NotImplementedError(
-                f"process_count={self.process_count}: the multi-host two-phase checkpoint "
-                "commit is not ported yet (ROADMAP A11)")
+        rank and world size (``multihost``), else 0 and 1 (overridable so the
+        two-phase protocol is testable in one process); ``barrier`` is any
+        object with ``wait(name)`` and defaults to ``multihost.default_barrier``
+        when a process group is live.  ``barrier_timeout`` bounds every wait a
+        dead peer could hang: barriers, the coordinator's host-manifest
+        collection and the others' publication poll — each raises
+        ``HostLossError`` on expiry."""
+        self.process_index = (multihost.process_index() if process_index is None
+                              else int(process_index))
+        self.process_count = max(1, multihost.process_count() if process_count is None
+                                 else int(process_count))
+        self.barrier_timeout = float(barrier_timeout)
+        self.poll_interval = float(poll_interval)
+        self._barrier = barrier
         self.directory = directory
         self.keep_last = keep_last
         os.makedirs(directory, exist_ok=True)
@@ -336,7 +365,35 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
+    def _get_barrier(self) -> Any:
+        if self._barrier is None:
+            self._barrier = multihost.default_barrier(self.barrier_timeout)
+            if self._barrier is None:
+                raise RuntimeError(
+                    f"process_count={self.process_count} needs a coordination "
+                    "barrier: initialize torch.distributed "
+                    "(multihost.initialize()) or inject barrier= explicitly"
+                )
+        return self._barrier
+
+    @staticmethod
+    def _write_shard(path: str, names: list[str], leaves: list[_HostLeaf]) -> tuple[str, float, _HashingWriter]:
+        """Write and fsync one shard, hashing it as it is written; returns
+        (sha256, the write's end time, the writer)."""
+        with open(path, "wb") as f:
+            w = _HashingWriter(f)
+            try:
+                _write_npz(w, names, leaves)
+                f.flush()
+                os.fsync(f.fileno())
+                t1 = time.perf_counter()
+            finally:
+                digest = w.hexdigest()  # also ends the hashing thread on a failed write
+        return digest, t1, w
+
     def _write(self, step: int, host: tuple, extra: dict | None = None) -> str:
+        if self.process_count > 1:
+            return self._write_multihost(step, host, extra)
         names, leaves, snapshot_s = host
         t0 = time.perf_counter()
         final = os.path.join(self.directory, f"step_{step}")
@@ -346,15 +403,7 @@ class CheckpointManager:
         os.makedirs(tmp)
         shard_name = "shard_0.npz"
         shard_path = os.path.join(tmp, shard_name)
-        with open(shard_path, "wb") as f:
-            w = _HashingWriter(f)
-            try:
-                _write_npz(w, names, leaves)
-                f.flush()
-                os.fsync(f.fileno())
-                t1 = time.perf_counter()
-            finally:
-                digest = w.hexdigest()  # also ends the hashing thread on a failed write
+        digest, t1, w = self._write_shard(shard_path, names, leaves)
         t2 = time.perf_counter()
         manifest = {
             "format": MANIFEST_FORMAT,
@@ -390,6 +439,112 @@ class CheckpointManager:
             os.fsync(dirfd)
         finally:
             os.close(dirfd)
+
+    # -- multi-host two-phase commit ----------------------------------------
+
+    def _write_multihost(self, step: int, host: tuple, extra: dict | None = None) -> str:
+        names, leaves, snapshot_s = host
+        t0 = time.perf_counter()
+        final = os.path.join(self.directory, f"step_{step}")
+        tmp = final + ".tmp"
+        bar = self._get_barrier()
+        coordinator = self.process_index == 0
+        # rendezvous BEFORE touching the staging dir: once every host is
+        # here, nobody can still be writing into a previous attempt's tmp
+        bar.wait(f"ckpt_{step}_enter")
+        if coordinator:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        bar.wait(f"ckpt_{step}_staged")
+        # phase 1: every host fsyncs its own shard + checksummed host manifest
+        shard_name = f"shard_{self.process_index}.npz"
+        shard_path = os.path.join(tmp, shard_name)
+        digest, _, w = self._write_shard(shard_path, names, leaves)
+        host_manifest = {
+            "process_index": self.process_index,
+            "checksums": {shard_name: digest},
+            "leaves": {n: {"shape": list(leaf.array.shape), "dtype": leaf.dtype}
+                       for n, leaf in zip(names, leaves)},
+        }
+        hm_final = os.path.join(tmp, f"host_{self.process_index}.json")
+        _fsync_write(hm_final + ".tmp", lambda f: f.write(json.dumps(host_manifest).encode()))
+        os.replace(hm_final + ".tmp", hm_final)
+        if not coordinator:
+            # phase 2 (follower): wait for the coordinator's publication
+            self._await_publication(final, step)
+        else:
+            # phase 2 (coordinator): collect every host's manifest, re-hash
+            # every shard against its host's checksum, publish ONE manifest
+            host_manifests = self._collect_host_manifests(tmp)
+            checksums: dict[str, str] = {}
+            leaves_meta: dict[str, Any] = {}
+            for hm in host_manifests:
+                for fn, want in hm["checksums"].items():
+                    got = _sha256_file(os.path.join(tmp, fn))
+                    if got != want:
+                        raise CheckpointCorruptionError(
+                            f"{tmp}: host {hm['process_index']} shard {fn} checksum mismatch "
+                            f"before publish (host manifest {want[:12]}…, file {got[:12]}…)")
+                    checksums[fn] = want
+                leaves_meta.update(hm["leaves"])
+            manifest = {
+                "format": MULTIHOST_MANIFEST_FORMAT,
+                "step": step,
+                "time": time.time(),
+                "num_shards": self.process_count,
+                "hosts": sorted(hm["process_index"] for hm in host_manifests),
+                "leaves": leaves_meta,
+                "checksums": checksums,
+                "extra": dict(extra) if extra else {},
+            }
+            _fsync_write(os.path.join(tmp, "manifest.json"),
+                         lambda f: f.write(json.dumps(manifest).encode()))
+            self._publish(tmp, final)
+            self._gc()  # coordinator-only: followers never delete checkpoints
+        self.last_save = {"step": step, "snapshot_s": snapshot_s,
+                          "write_s": time.perf_counter() - t0, "sha256_s": w.hash_s,
+                          "bytes": os.path.getsize(os.path.join(final, shard_name))}
+        return final
+
+    def _collect_host_manifests(self, tmp: str) -> list[dict]:
+        """Coordinator: poll until every host's manifest exists and parses;
+        a host that never delivers within ``barrier_timeout`` is presumed
+        dead and nothing is published."""
+        deadline = time.monotonic() + self.barrier_timeout
+        want = set(range(self.process_count))
+        have: dict[int, dict] = {}
+        while True:
+            for i in sorted(want - set(have)):
+                try:
+                    with open(os.path.join(tmp, f"host_{i}.json")) as f:
+                        have[i] = json.load(f)
+                except (FileNotFoundError, json.JSONDecodeError, OSError):
+                    continue
+            if set(have) == want:
+                return [have[i] for i in sorted(have)]
+            if time.monotonic() > deadline:
+                missing = sorted(want - set(have))
+                raise HostLossError(
+                    f"distributed checkpoint: host manifest(s) from {missing} never arrived "
+                    f"within {self.barrier_timeout}s — publishing nothing", hosts=missing)
+            time.sleep(self.poll_interval)
+
+    def _await_publication(self, final: str, step: int) -> None:
+        """Follower: block until the coordinator's atomic publish appears."""
+        deadline = time.monotonic() + self.barrier_timeout
+        while True:
+            try:
+                with open(os.path.join(final, "manifest.json")) as f:
+                    if int(json.load(f).get("step", -1)) == step:
+                        return
+            except (FileNotFoundError, NotADirectoryError, json.JSONDecodeError, OSError):
+                pass
+            if time.monotonic() > deadline:
+                raise HostLossError(
+                    f"distributed checkpoint step {step}: coordinator never published "
+                    f"within {self.barrier_timeout}s — presumed dead", hosts=[0])
+            time.sleep(self.poll_interval)
 
     def _gc(self) -> None:
         if not self.keep_last:

@@ -19,7 +19,12 @@ Port of ``repro.core.milo``:
 With ``gram_free=True`` no Gram is built: the set functions of
 ``core.gram_free`` contract the row-normalised features directly (O(n·d)
 memory).  With ``lazy_gains=True`` a facility-location WRE pass runs
-through ``greedy.lazy_greedy``.
+through ``greedy.lazy_greedy``.  With ``shard_selection=True`` (gram-free
+only) and a process group of more than one rank, every class whose padded
+size divides the mesh runs the sharded engines of ``core.sharded`` on every
+rank (its rows split across the ranks); the others, and every class without
+a process group, run the single-device path.  ``shard_selection`` is
+provenance only in the config: both paths select the same subsets.
 
 ``MiloSelector`` serves the subsets during training: an SGE-bank lookup or
 one Gumbel top-k WRE draw per epoch window.
@@ -63,24 +68,6 @@ from repro_torch.core.partition import (
 )
 from repro_torch.core.similarity import gram_matrix_blocked, normalize_rows
 from repro_torch.device import resolve_device
-
-#: knobs of the reference whose machinery is not ported yet:
-#: field -> (the only value the port accepts, ROADMAP item that ports the rest)
-UNPORTED_PREPROCESS = {
-    "shard_selection": (False, "A11 (multi-device selection)"),
-}
-
-
-def refuse_unported(obj: Any, table: dict[str, tuple[Any, str]]) -> None:
-    """Raise ``NotImplementedError`` for a knob set away from the one value
-    the port supports, naming the ROADMAP item that will port it."""
-    for name, (allowed, item) in table.items():
-        if getattr(obj, name) != allowed:
-            raise NotImplementedError(
-                f"{type(obj).__name__}.{name}={getattr(obj, name)!r} is not "
-                f"ported yet (ROADMAP {item}); the port supports {allowed!r}"
-            )
-
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, int(n) - 1).bit_length()
@@ -136,7 +123,6 @@ class MiloPreprocessor:
     device: dataclasses.InitVar[str | torch.device] = "cuda"
 
     def __post_init__(self, device):
-        refuse_unported(self, UNPORTED_PREPROCESS)
         self.device = resolve_device(device)
 
     def partition_strategy(self) -> PartitionStrategy:
@@ -152,6 +138,37 @@ class MiloPreprocessor:
             return None
         budget = max(1, int(n_run * self.lazy_threshold))
         return None if budget >= n_run else budget
+
+    def _sharded_set_fn(self, name: str, mesh) -> submodular.SetFunction:
+        from repro_torch.core import sharded as sharded_mod
+
+        kwargs = {}
+        if name == "graph_cut":
+            kwargs["lam"] = self.graph_cut_lambda
+        if name == "facility_location":
+            kwargs["use_pallas"] = self.use_pallas
+        return sharded_mod.make_sharded_gram_free(name, mesh=mesh, **kwargs)
+
+    def _selection_mesh(self) -> tuple | None:
+        """(mesh, easy_sh, hard_sh) when ``shard_selection`` routes to a mesh
+        of more than one rank (``torch.distributed`` initialised, e.g. by
+        ``multihost.initialize()``); None otherwise, and then every class
+        takes the single-device path, as the reference does for a mesh of
+        one device."""
+        if not self.shard_selection:
+            return None
+        if not self.gram_free:
+            raise ValueError(
+                "shard_selection=True requires gram_free=True: only the "
+                "feature-matrix row axis is shardable (a materialized "
+                "Gram couples both axes)")
+        from repro_torch.distributed.sharding import SELECTION_AXIS, selection_mesh
+
+        mesh = selection_mesh(axis=SELECTION_AXIS)
+        if mesh.size <= 1:
+            return None
+        return (mesh, self._sharded_set_fn(self.easy_fn, mesh),
+                self._sharded_set_fn(self.hard_fn, mesh))
 
     def _set_fn(self, name: str) -> submodular.SetFunction:
         if self.gram_free:
@@ -176,9 +193,12 @@ class MiloPreprocessor:
         hard: submodular.SetFunction,
         generator: torch.Generator,
         noise=None,
+        sharded: tuple | None = None,
     ) -> tuple[np.ndarray, np.ndarray]:
         """SGE bank + WRE importance for one class: the (n_sge_subsets, k_c)
-        local-index bank and the (n_c,) importance vector."""
+        local-index bank and the (n_c,) importance vector.  With ``sharded``
+        (``_selection_mesh()``) a class whose (padded) size divides the mesh
+        runs the sharded engines on every rank; the others run here."""
         n_c = len(feats_c)
         z = torch.as_tensor(feats_c, device=self.device)
         n_run, k_run, valid = n_c, k_c, None
@@ -200,16 +220,28 @@ class MiloPreprocessor:
                                     use_pallas=self.use_pallas, n_pad=n_run)
         s_sge = (stochastic_candidate_count(n_c, k_c, self.eps)
                  if self.exact_sge_candidates else None)
-        subs = run_sge(easy, A, k_run, n_subsets=self.n_sge_subsets, eps=self.eps,
-                       valid=valid, s=s_sge, generator=generator, noise=noise)
-        imp = greedy_importance(hard, A, valid=valid,
-                                lazy_budget=self._lazy_budget(n_run, hard),
-                                lazy_two_level=self.lazy_two_level)
+        if sharded is not None and n_run % sharded[0].size == 0:
+            from repro_torch.core import sharded as sharded_mod
+
+            mesh, easy_sh, hard_sh = sharded
+            subs = sharded_mod.sharded_sge(
+                easy_sh, A, k_run, n_subsets=self.n_sge_subsets, eps=self.eps, s=s_sge,
+                mesh=mesh, valid=valid, generator=generator, noise=noise)
+            imp = sharded_mod.sharded_greedy_importance(
+                hard_sh, A, mesh=mesh, valid=valid,
+                lazy_budget=self._lazy_budget(n_run, hard_sh),
+                lazy_two_level=self.lazy_two_level)
+        else:
+            subs = run_sge(easy, A, k_run, n_subsets=self.n_sge_subsets, eps=self.eps,
+                           valid=valid, s=s_sge, generator=generator, noise=noise)
+            imp = greedy_importance(hard, A, valid=valid,
+                                    lazy_budget=self._lazy_budget(n_run, hard),
+                                    lazy_two_level=self.lazy_two_level)
         return (subs[:, :k_c].cpu().numpy().astype(np.int64),
                 imp[:n_c].cpu().numpy().astype(np.float32))
 
     def _refine_indices(self, feats_u: np.ndarray, k: int,
-                        easy: submodular.SetFunction) -> np.ndarray:
+                        easy: submodular.SetFunction, sharded: tuple | None = None) -> np.ndarray:
         """Level-1 pass: exact greedy (the easy_fn objective) over the union
         of level-0 winners, lazy-routed like the WRE pass, on the device
         (the dense route builds the union's Gram through ``gram_matrix_blocked``,
@@ -222,8 +254,16 @@ class MiloPreprocessor:
         else:
             A = gram_matrix_blocked(z, metric=self.metric, block=self.gram_block,
                                     use_pallas=self.use_pallas)
-        res = run_refine(easy, A, k, lazy_budget=self._lazy_budget(n_u, easy),
-                         two_level=self.lazy_two_level)
+        if sharded is not None and n_u % sharded[0].size == 0:
+            from repro_torch.core import sharded as sharded_mod
+
+            mesh, easy_sh, _ = sharded
+            res = sharded_mod.sharded_refine(
+                easy_sh, A, k, mesh=mesh, lazy_budget=self._lazy_budget(n_u, easy_sh),
+                lazy_two_level=self.lazy_two_level)
+        else:
+            res = run_refine(easy, A, k, lazy_budget=self._lazy_budget(n_u, easy),
+                             two_level=self.lazy_two_level)
         return res.indices.cpu().numpy().astype(np.int64)
 
     def _refine_bank(
@@ -233,6 +273,7 @@ class MiloPreprocessor:
         per_class_sge: Sequence[np.ndarray],
         k: int,
         easy: submodular.SetFunction,
+        sharded: tuple | None = None,
     ) -> np.ndarray:
         """Cut each oversampled bank slot back down to exactly k.  Every
         slot's union has the same size, Σ min(n_c, rf·k_c)."""
@@ -242,7 +283,7 @@ class MiloPreprocessor:
             if len(union) <= k:
                 slots.append(union)
                 continue
-            slots.append(union[self._refine_indices(features[union], k, easy)])
+            slots.append(union[self._refine_indices(features[union], k, easy, sharded)])
         return np.stack(slots, axis=0)
 
     def warmup(self, buckets: Sequence[tuple[int, int]], d: int, *, seed: int = 0) -> int:
@@ -265,6 +306,7 @@ class MiloPreprocessor:
         bucket = self.bucket_classes and len(bucket_list) > 1
         easy = self._set_fn(self.easy_fn)
         hard = self._set_fn(self.hard_fn)
+        sharded = self._selection_mesh()
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
         rng = np.random.default_rng(0)
         rf = max(1, int(self.refine_factor))
@@ -276,14 +318,14 @@ class MiloPreprocessor:
             seen.add((n_c, k_sel))
             dummy = rng.normal(size=(n_c, d)).astype(np.float32)
             _, imp = self._class_selection(dummy, k_sel, bucket=bucket, easy=easy,
-                                           hard=hard, generator=gen)
+                                           hard=hard, generator=gen, sharded=sharded)
             taylor_softmax(torch.from_numpy(imp))
         if rf > 1:
             n_union = sum(min(n_c, rf * k_c) for n_c, k_c in bucket_list if k_c > 0)
             k_total = sum(k_c for _, k_c in bucket_list if k_c > 0)
             if 0 < k_total < n_union:
                 dummy = rng.normal(size=(n_union, d)).astype(np.float32)
-                self._refine_indices(dummy, k_total, easy)
+                self._refine_indices(dummy, k_total, easy, sharded)
         return len(seen)
 
     def preprocess(
@@ -393,6 +435,7 @@ class MiloPreprocessor:
         sel_widths = [min(len(p.indices), rf * b) for p, b in zip(parts, budgets)]
         easy = self._set_fn(self.easy_fn)
         hard = self._set_fn(self.hard_fn)
+        sharded = self._selection_mesh()
         # bucketing only deduplicates across >1 partition (as the reference)
         bucket = self.bucket_classes and len(parts) > 1
         gen = torch.Generator(device=self.device).manual_seed(int(seed))
@@ -409,6 +452,7 @@ class MiloPreprocessor:
                 subs_c, imp = self._class_selection(
                     features[part.indices], k_sel, bucket=bucket, easy=easy, hard=hard,
                     generator=gen, noise=None if sge_noise is None else sge_noise[i],
+                    sharded=sharded,
                 )
                 per_class_sge.append(subs_c)
             wre_importance[part.indices] = imp
@@ -420,7 +464,7 @@ class MiloPreprocessor:
         wre_probs = _normalize_probs(wre_probs)
         if rf > 1:
             # level 1: each slot's oversampled union refined down to k
-            sge_subsets = self._refine_bank(features, parts, per_class_sge, k, easy)
+            sge_subsets = self._refine_bank(features, parts, per_class_sge, k, easy, sharded)
         else:
             sge_subsets = np.stack(
                 [merge_class_selections(parts, [s[i] for s in per_class_sge])

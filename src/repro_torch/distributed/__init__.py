@@ -1,3 +1,4 @@
-"""Distributed execution (port of ``repro.distributed``): so far the
-single-process fault-tolerance pieces (``fault_tolerance``) and the host
-liveness beacons (``multihost``: ``HeartbeatWriter``, ``HeartbeatMonitor``)."""
+"""Distributed execution (port of ``repro.distributed``): fault tolerance
+(``fault_tolerance``), multi-host start-up, barriers, liveness and placement
+(``multihost``), the selection mesh and its collectives (``sharding``), and
+checksummed int8 / top-k compression (``compression``)."""

@@ -111,7 +111,7 @@ class MiloFixedConfig:
     k: int
     # select over features directly (O(n·d) memory) instead of the (n,n) Gram
     gram_free: bool = False
-    # shard the feature rows over all local devices (not ported: ROADMAP A11)
+    # shard the feature rows over the ranks of the selection mesh
     shard_selection: bool = False
     # where the greedy runs (see baselines.MiloFixedSelector)
     device: str | torch.device = "cuda"

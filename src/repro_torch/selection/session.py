@@ -41,9 +41,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.metadata import MetadataMismatchError, MiloMetadata, is_preprocessed
-from repro_torch.core.milo import UNPORTED_PREPROCESS, MiloPreprocessor, refuse_unported
+from repro_torch.core.milo import MiloPreprocessor
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed import multihost
 from repro_torch.models.classifier import accuracy, init_mlp, nesterov_update, weighted_nll
 from repro_torch.selection.base import Selector
 from repro_torch.selection.registry import build_selector, selector_entry
@@ -64,13 +65,6 @@ _PREPROCESS_KEYS = (
     "subset_fraction", "n_sge_subsets", "eps", "easy_fn", "hard_fn",
     "graph_cut_lambda", "classwise", "metric",
 )
-
-#: session knobs whose machinery is not ported yet (see core.milo.refuse_unported)
-UNPORTED_SESSION = {
-    "multihost_init": (False, "A11 (multi-host execution)"),
-    "heartbeat_dir": (None, "A11 (multi-host liveness)"),
-}
-
 
 @dataclasses.dataclass
 class MiloSessionConfig:
@@ -116,7 +110,14 @@ class MiloSessionConfig:
     batch_size: int = 0          # 0 = one full-subset batch per epoch
     eval_every_epochs: int = 1
     metadata_path: str | None = None
+    # multi-host execution (distributed.multihost): start torch.distributed
+    # at construction from the MILO_COORDINATOR / MILO_NUM_PROCESSES /
+    # MILO_PROCESS_ID env triplet (idempotent; a no-op without it).  Then
+    # shard_selection's mesh spans every rank with no further knobs
     multihost_init: bool = False
+    # host-liveness beacons for train(): every step boundary writes this
+    # host's heartbeat and checks its peers'; a peer stale past the timeout
+    # raises HostLossError.  The directory must be shared by the job's hosts
     heartbeat_dir: str | None = None
     heartbeat_timeout: float = 60.0
 
@@ -229,8 +230,8 @@ class MiloSession:
             config = MiloSessionConfig(**overrides)
         elif overrides:
             config = dataclasses.replace(config, **overrides)
-        refuse_unported(config, UNPORTED_PREPROCESS)
-        refuse_unported(config, UNPORTED_SESSION)
+        if config.multihost_init:
+            multihost.initialize()
         self.device = resolve_device(device)
         self.config = config
         self.metadata: MiloMetadata | None = None
@@ -575,7 +576,8 @@ class MiloSession:
         trainer = Trainer(
             train_step, pipe,
             TrainerConfig(epochs=epochs, eval_every_epochs=cfg.eval_every_epochs,
-                          log_every_steps=1),
+                          log_every_steps=1, heartbeat_dir=cfg.heartbeat_dir,
+                          heartbeat_timeout=cfg.heartbeat_timeout),
             eval_fn=eval_fn, fused=cfg.fused_training, superstep=cfg.superstep,
             resident_buffers=self._resident(features, labels, feats, labs),
         )

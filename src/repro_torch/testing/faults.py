@@ -1,5 +1,5 @@
-"""Deterministic fault-injection harness (port of the single-process part
-of ``repro.testing.faults``).
+"""Deterministic fault-injection harness (port of
+``repro.testing.faults``).
 
 Fault-tolerance claims are only as strong as the faults they were tested
 against, and randomised fault injection makes failures unreproducible.
@@ -15,6 +15,19 @@ survive):
     lands at the first step/segment boundary >= N).  The process dies
     without unwinding — exactly what preemption looks like to the
     checkpoint layer.
+  * ``KillHost``        — the multi-host variant: SIGKILL only when this
+    process's ``multihost.process_index()`` matches, so one host of a
+    ``launch_hosts`` job dies at an exact step boundary while its peers run
+    on into dead-host detection (a heartbeat timeout or a checkpoint
+    barrier timeout → ``HostLossError``).
+  * ``launch_hosts``    — the multi-process harness itself: picks a free
+    coordinator port, spawns N copies of a ``python -c`` script with the
+    ``MILO_COORDINATOR``/``MILO_NUM_PROCESSES``/``MILO_PROCESS_ID`` env
+    triplet ``multihost.initialize()`` reads, and collects per-process
+    (returncode, stdout, stderr) within a timeout of its own.
+  * ``flip_payload_byte`` — corrupts one rank's compressed payload at an
+    exact call, after its checksum was stamped (``core.sharded``'s
+    ``payload_hook``): the ground truth for the integrity check.
   * ``flaky`` / ``fail_nth_calls`` — scripted exceptions from any callable
     (artifact builds, objectives): fail the first K calls, or an explicit
     set of call numbers, then delegate.
@@ -30,10 +43,6 @@ survive):
   * ``fail_objective_for_configs`` — scripted Hyperband objective failures
     for an exact set of configs, the ground truth for trial-quarantine
     tests.
-
-The multi-process pieces of the reference (``KillHost``, ``launch_hosts``,
-``free_port``, ``HostResult``) start processes of a multi-host job and wait
-for multi-host execution (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -88,6 +97,143 @@ class KillAtStep(StragglerMonitor):
         if step >= self.kill_step:
             kill_process()
         return super().observe(step, dt)
+
+
+class KillHost(KillAtStep):
+    """SIGKILL one specific host of a multi-process job at a step boundary.
+
+    Drop-in for ``trainer.monitor`` on EVERY host (the schedule must be
+    identical everywhere or the surviving hosts' step streams would
+    diverge); only the host whose ``multihost.process_index()`` matches
+    ``process_to_kill`` dies.  The survivors then hit dead-host detection —
+    a stale heartbeat or an unreached checkpoint barrier — and exit with
+    ``HostLossError``.
+    """
+
+    def __init__(self, kill_step: int, process_to_kill: int = 1, **monitor_kwargs: Any):
+        super().__init__(kill_step, **monitor_kwargs)
+        self.process_to_kill = process_to_kill
+
+    def observe(self, step: int, dt: float) -> bool:
+        from repro_torch.distributed import multihost
+
+        if step >= self.kill_step and multihost.process_index() == self.process_to_kill:
+            kill_process()
+        return StragglerMonitor.observe(self, step, dt)
+
+
+def free_port() -> int:
+    """An OS-assigned free TCP port (for the coordinator's store)."""
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class HostResult:
+    """One launched host's outcome: returncode / stdout / stderr."""
+
+    def __init__(self, process_id: int, returncode: int, stdout: str, stderr: str):
+        self.process_id = process_id
+        self.returncode = returncode
+        self.stdout = stdout
+        self.stderr = stderr
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"HostResult(process_id={self.process_id}, returncode={self.returncode})"
+
+
+def launch_hosts(
+    script: str,
+    argv: list[str],
+    *,
+    num_processes: int = 2,
+    env: dict[str, str] | None = None,
+    timeout: float = 600.0,
+    cwd: str | None = None,
+) -> list[HostResult]:
+    """Run ``script`` as ``num_processes`` coordinated processes.
+
+    Spawns ``python -c script argv...`` once per process with the
+    ``MILO_*`` env triplet ``multihost.initialize()`` consumes (one shared
+    free coordinator port), waits for ALL of them and returns their results
+    in process order.  The whole launch has one deadline, ``timeout`` s:
+    a process still running then is killed (its return code is then
+    ``-SIGKILL`` and its stderr says so), so no process outlives it.  No
+    return-code policy is imposed here — a kill test asserts ``-SIGKILL``
+    on the victim and non-zero on the survivors, a happy-path test asserts
+    all zero.
+    """
+    import subprocess
+    import sys
+    import tempfile
+    import time
+
+    port = free_port()
+    base_env = dict(os.environ)
+    if env:
+        base_env.update(env)
+    # each child writes to files, not pipes: a child blocked on a full pipe
+    # while its peer waits for it at a barrier would hang the job
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(num_processes)]
+    procs = []
+    for i, (out, err) in enumerate(logs):
+        e = dict(base_env)
+        e.update(
+            MILO_COORDINATOR=f"localhost:{port}",
+            MILO_NUM_PROCESSES=str(num_processes),
+            MILO_PROCESS_ID=str(i),
+        )
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", script, *[str(a) for a in argv]],
+            env=e, cwd=cwd, stdout=out, stderr=err,
+        ))
+    deadline = time.monotonic() + timeout
+    killed = set()
+    try:
+        for i, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(0.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+                killed.add(i)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for i, (p, (out, err)) in enumerate(zip(procs, logs)):
+        out.seek(0)
+        err.seek(0)
+        text = err.read()
+        if i in killed:
+            text += f"\nlaunch_hosts: process {i} killed at the {timeout}s timeout\n"
+        results.append(HostResult(i, p.returncode, out.read(), text))
+        out.close()
+        err.close()
+    return results
+
+
+def flip_payload_byte(at_call: int, process: int, index: int = 0) -> Callable:
+    """A ``core.sharded.payload_hook`` that flips the low bit of byte
+    ``index`` of the int8 payload that process ``process`` sends on its
+    ``at_call``-th compressed payload (counted from 1), after the payload's
+    checksum was stamped — a corrupted transfer.  ``hook.fired`` counts the
+    flips."""
+    from repro_torch.distributed import multihost
+
+    def hook(call: int, q) -> None:
+        if call == at_call and multihost.process_index() == process:
+            flat = q.view(-1)
+            flat[index] = flat[index] ^ 1
+            hook.fired += 1
+
+    hook.fired = 0
+    return hook
 
 
 def flaky(

@@ -35,7 +35,12 @@ Pipelines without an ``arrays`` column store, or a trainer with a custom
 ``put_batch``, take the step loop (those batches are assembled on the host,
 behind the pipeline's prefetch thread).
 
-Multi-host liveness (``heartbeat_dir``) is not ported (ROADMAP A11).
+Multi-host runs: every host runs the whole replicated step (no gradient
+all-reduce, as in the reference); checkpoints take the two-phase
+coordinated commit when ``torch.distributed`` has more than one process
+(``barrier_timeout`` bounds each of its waits), and with ``heartbeat_dir``
+every host writes its beacon at every step or segment boundary and checks
+its peers' — a stale peer raises ``HostLossError``.
 """
 from __future__ import annotations
 
@@ -48,6 +53,7 @@ import torch
 from repro_torch.checkpoint.checkpointer import CheckpointManager
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.device import resolve_device
+from repro_torch.distributed import multihost
 from repro_torch.distributed.fault_tolerance import (
     ElasticPlan,
     StragglerMonitor,
@@ -95,8 +101,17 @@ class TrainerConfig:
     # replays; flags at or before the rolled-back step are tolerated on
     # replay, so a deterministic fault cannot re-trigger forever
     guard: GuardPolicy | None = None
-    # multi-host liveness: not ported (ROADMAP A11); setting it raises
+    # multi-host liveness: when set, this host writes a heartbeat beacon
+    # (``multihost.HeartbeatWriter``) at every step/segment boundary and
+    # checks every peer's freshness — a peer stale past
+    # ``heartbeat_timeout`` raises ``HostLossError``.  The directory must be
+    # shared by the job's hosts
     heartbeat_dir: str | None = None
+    heartbeat_timeout: float = 60.0
+    # bound on every wait a dead peer could hang inside the two-phase
+    # distributed checkpoint (barriers, manifest collection, publication
+    # poll); expiry raises HostLossError instead of deadlocking the job
+    barrier_timeout: float = 120.0
 
 
 def _to_host(metrics: dict) -> dict:
@@ -114,8 +129,7 @@ def _device_count(dev: torch.device) -> int:
 
 
 def _process_count() -> int:
-    dist = torch.distributed
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return multihost.process_count()
 
 
 class Trainer:
@@ -131,9 +145,6 @@ class Trainer:
         superstep: int = 32,
         resident_buffers: dict | None = None,
     ):
-        if tcfg.heartbeat_dir:
-            raise NotImplementedError(
-                "heartbeat_dir: multi-host liveness is not ported yet (ROADMAP A11)")
         self.train_step = train_step
         self.pipeline = pipeline
         self.tcfg = tcfg
@@ -149,7 +160,17 @@ class Trainer:
         self._buffers: dict | None = resident_buffers
         self._pending_history: tuple | None = None
         self.monitor = StragglerMonitor()
-        self.ckpt = CheckpointManager(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
+        self.ckpt = (CheckpointManager(tcfg.checkpoint_dir, barrier_timeout=tcfg.barrier_timeout)
+                     if tcfg.checkpoint_dir else None)
+        # multi-host liveness: beat + check at every step/segment boundary
+        if tcfg.heartbeat_dir:
+            self.heartbeat = multihost.HeartbeatWriter(tcfg.heartbeat_dir)
+            self.liveness = multihost.HeartbeatMonitor(
+                tcfg.heartbeat_dir, timeout=tcfg.heartbeat_timeout,
+                expected=multihost.process_count())
+        else:
+            self.heartbeat = None
+            self.liveness = None
         self.history: list[dict] = []
         # elastic-restart plan computed when a resume sees a different
         # device count than the checkpoint's writer (None otherwise)
@@ -191,6 +212,14 @@ class Trainer:
             "data_seed": self.pipeline.seed,
             "batch_size": self.pipeline.batch_size,
         }
+
+    def _beat_and_check(self, global_step: int) -> None:
+        """Heartbeat + dead-host detection at a step/segment boundary: raises
+        ``HostLossError`` when any peer's beacon is stale."""
+        if self.heartbeat is None:
+            return
+        self.heartbeat.beat(global_step)
+        self.liveness.check()
 
     def _save_checkpoint(self, global_step: int, state: Any) -> None:
         if self.tcfg.async_checkpoint:
@@ -280,6 +309,7 @@ class Trainer:
             self.monitor.start()
             state, metrics = engine(state, buffers, idx[pos:pos + seg], w[pos:pos + seg])
             self.monitor.stop(global_step + seg)
+            self._beat_and_check(global_step + seg)
             # rollback/abort must decide before this segment's state can be
             # checkpointed; skip_step stays read-free (the flag rides the drain)
             if self.guard is not None and self.guard.action != "skip_step":
@@ -474,6 +504,7 @@ class Trainer:
             self.monitor.start()
             state, metrics = self._step(state, self.put_batch(batch))
             self.monitor.stop(global_step)
+            self._beat_and_check(global_step)
             global_step += 1
             if guard_sync and float(metrics[guard_mod.GUARD_KEY]) > 0:
                 self._on_guard_bad(1, global_step, epoch, state)

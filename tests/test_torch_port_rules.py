@@ -1,6 +1,5 @@
-"""Rules the PyTorch port keeps: it never loads JAX or the JAX package, it
-never falls back to the CPU on its own, and every knob whose machinery is
-not ported yet refuses instead of being silently ignored."""
+"""Rules the PyTorch port keeps: it never loads JAX or the JAX package, and
+it never falls back to the CPU on its own."""
 import ast
 import os
 import subprocess
@@ -104,36 +103,6 @@ def test_server_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="cuda"):
         BufferRegistry()
     assert MiloServer(MiloSessionConfig(), device="cpu").device.type == "cpu"
-
-
-@pytest.mark.parametrize("knob,value", [
-    ("shard_selection", True),
-    ("multihost_init", True), ("heartbeat_dir", "hb"),
-])
-def test_unported_knobs_raise(knob, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MiloSession(device="cpu", **{knob: value})
-    if knob in {f for f in MiloPreprocessor.__dataclass_fields__}:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MiloPreprocessor(device="cpu", **{knob: value})
-
-
-@pytest.mark.parametrize("knob", ["trainer_heartbeat_dir", "checkpoint_process_count"])
-def test_unported_training_knobs_raise(knob, tmp_path):
-    """The multi-host pieces of training (liveness heartbeats, the two-phase
-    checkpoint commit) refuse, naming ROADMAP A11."""
-    from repro_torch.checkpoint.checkpointer import CheckpointManager
-    from repro_torch.data.pipeline import Pipeline
-    from repro_torch.train.trainer import Trainer, TrainerConfig
-
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        if knob == "trainer_heartbeat_dir":
-            sel = build_selector("random", n=8, k=4, seed=0)
-            Trainer(lambda s, b: (s, {}), Pipeline(None, sel, 2, arrays={"x": np.zeros(8)},
-                                                   device="cpu"),
-                    TrainerConfig(epochs=1, heartbeat_dir=str(tmp_path)))
-        else:
-            CheckpointManager(str(tmp_path), process_count=2)
 
 
 def test_lm_entry_points_default_to_the_card():

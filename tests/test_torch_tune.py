@@ -92,9 +92,10 @@ def test_milo_fixed_through_the_session_and_refusals(example, tmp_path):
     np.testing.assert_array_equal(sel.plan(0).indices, ref.plan(0).indices)
     with pytest.raises(ValueError, match="needs `features`"):
         ts.selector("milo_fixed", n=len(feats))
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tsel.build_selector("milo_fixed", features=feats, k=5, shard_selection=True,
-                            device="cpu")
+    # shard_selection on one process: the gram-free path, as the reference's
+    a = tsel.build_selector("milo_fixed", features=feats, k=5, shard_selection=True, device="cpu")
+    b = jsel.build_selector("milo_fixed", features=feats, k=5, shard_selection=True)
+    np.testing.assert_array_equal(a.plan(0).indices, b.plan(0).indices)
     assert [f.name for f in dataclasses.fields(tsel.MiloFixedConfig)][:4] == \
            [f.name for f in dataclasses.fields(jsel.MiloFixedConfig)]
 
