@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-21 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-22 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -226,6 +226,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
     restarted pair's parameters are bit-equal to an uninterrupted pair's
     and to one process's.  Scratch files under the git-ignored
     ``build/phase21/``, removed at the end.
+22. the LM sharding rules on DTensor: (a) phase 12's yi-6b at full width on
+    a (1, 1) ``data x model`` mesh of one NCCL rank, its weights and caches
+    as DTensors over the same tensors: ``lm.prefill`` of phase 12's first
+    prompt (1,781 tokens) and 8 ``lm.decode_step``s under the ambient mesh,
+    logits bit-equal to the plain tensors' (asserted), B5's 32 prefill
+    launches on the local-shard route (asserted), prefill ms and the median
+    decode ms beside the plain run's (DTensor's dispatch cost, reported);
+    (b) one Jamba block (a Mamba mixer and a MoE FFN of all 16 experts) at
+    published widths over 2,048 tokens on the same mesh, B6 on the
+    local-shard route (8 launches), output and state bit-equal; (c) B5 on
+    each rank's query heads of yi-6b's (1, 32/4, 2048, 128) for a model axis
+    of 8 (the 4 key/value heads replicated) and of 2 (split), with the
+    key/value heads ``ops.local_kv_heads`` gives it, bit-equal to the full
+    kernel's rows; (d) the dry run (``launch/dryrun.py``) of yi-6b
+    ``train_4k`` and ``decode_32k`` and Jamba ``prefill_32k`` on both
+    production meshes (32x8, 2x32x8), each cell a child process on the
+    card's host with the card hidden, six at a time, started before 22a
+    and run beside 22a-c: every cell ``ok`` (asserted), per-device FLOPs,
+    bytes, collective bytes by axis, argument bytes, the H100 spec sheet's
+    bound and roofline fraction, seconds.  Records under the git-ignored
+    ``build/phase22/``, removed at the end.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
@@ -234,7 +255,7 @@ dense ``fl_gains`` kernel, 12 and 20 for flash attention, 13 for the SSD chunk; 
 also carry their phase 16 launches and errors, B4 its phase 17 launches and
 its time, bound and error at CRAIG's shape, B1 its phase 19 launches, B5
 its phase 20 launches by shape and its times at phase 20's shapes, B2 and
-B3 their phase 21 launches per rank),
+B3 their phase 21 launches per rank, B5 and B6 their phase 22 launches),
 the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -4616,10 +4637,348 @@ def phase_multi_device(dev, x, y, gf7: dict, *, rehearsal: bool, smi: str) -> di
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the LM sharding rules on DTensor and the dry run
+# ---------------------------------------------------------------------------
+
+#: phase 22d's cells, each on both production meshes (32x8 and 2x32x8)
+DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "decode_32k"),
+                ("jamba-1.5-large-398b", "prefill_32k"))
+
+#: one dry run cell in a process of its own (a fake process group of 256 or
+#: 512 ranks; the card hidden, so nothing can reach it)
+DRYRUN_CHILD = ("import json, sys; from repro_torch.launch import dryrun; "
+                "rec = dryrun.run_cell(sys.argv[1], sys.argv[2], multi_pod=sys.argv[3] == 'mp', "
+                "out_dir=sys.argv[4], overrides=json.loads(sys.argv[5]) or None); "
+                "sys.exit(0 if rec['status'] == 'ok' else 1)")
+
+
+def _dry_run_overrides(arch: str, rehearsal: bool) -> dict:
+    """The rehearsal's cut: the smoke config's widths and depth at the
+    cell's full shapes (the full config's attention block and SSM chunk)."""
+    if not rehearsal:
+        return {}
+    from repro_torch.configs import registry
+
+    full, small = dataclasses.asdict(registry.get(arch)), dataclasses.asdict(registry.smoke(arch))
+    keep = ("attention_impl", "remat", "attn_block", "ssm_chunk", "pattern")
+    return {k: v for k, v in small.items() if v != full[k] and k not in keep}
+
+
+class _DryRuns:
+    """Phase 22d's cells as child processes, at most ``workers`` at a time,
+    started now and run beside 22a-c (the dry run uses the host's cores
+    only).  ``wait`` joins them all and kills what outlives ``timeout``.
+    The rehearsal runs yi-6b ``decode_32k`` and Jamba ``prefill_32k`` on
+    the single-pod mesh at smoke widths."""
+
+    def __init__(self, out: Path, *, rehearsal: bool, workers: int = 6, timeout: float = 600.0):
+        import os
+        import threading
+
+        self.out, self.timeout = out, timeout
+        self.jobs = [(a, s, mp) for a, s in DRYRUN_CELLS for mp in ("sp", "mp")]
+        if rehearsal:  # the rehearsal's cut: two cells, the single-pod mesh
+            self.jobs = [j for j in self.jobs if j[1] != "train_4k" and j[2] == "sp"]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="",
+                   OMP_NUM_THREADS="1")
+        self.results: dict = {}
+        self.procs: list = []
+        self.t0 = time.perf_counter()
+
+        def run():
+            pending = list(self.jobs)
+            live: dict = {}
+            while pending or live:
+                while pending and len(live) < workers:
+                    a, s, mp = pending.pop(0)
+                    args = [sys.executable, "-c", DRYRUN_CHILD, a, s, mp, str(out),
+                            json.dumps(_dry_run_overrides(a, rehearsal))]
+                    p = subprocess.Popen(args, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                         stderr=subprocess.STDOUT, text=True)
+                    self.procs.append(p)
+                    live[(a, s, mp)] = (p, time.perf_counter())
+                for key, (p, t) in list(live.items()):
+                    if p.poll() is not None:
+                        self.results[key] = (p.returncode, p.stdout.read()[-3000:],
+                                             time.perf_counter() - t)
+                        del live[key]
+                time.sleep(0.2)
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def wait(self) -> dict:
+        self.thread.join(max(1.0, self.timeout - (time.perf_counter() - self.t0)))
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        missing = [j for j in self.jobs if j not in self.results]
+        assert not missing, f"22d: dry run cells {missing} outlived {self.timeout:.0f} s"
+        return self.results
+
+
+def _from_local(mesh, tree, shardings):
+    """``tree``'s tensors as DTensors on ``mesh`` whose local shards they
+    are (no copy): on a mesh of one rank each tensor is its whole shard."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(tree, dict):
+        return {k: _from_local(mesh, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_from_local(mesh, t, s) for t, s in zip(tree, shardings))
+    return DTensor.from_local(tree, mesh, list(shardings), run_check=False)
+
+
+def _full(t: torch.Tensor) -> torch.Tensor:
+    from torch.distributed.tensor import DTensor
+
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def phase_sharded_yi(dev, mesh, *, rehearsal: bool, steps: int = 8) -> dict:
+    """22a: phase 12's yi-6b on a (1, 1) mesh of one rank: ``lm.prefill`` of
+    phase 12's first prompt and ``steps`` decode steps under the ambient
+    mesh, the weights and caches as DTensors over the same tensors, against
+    the same calls on the plain tensors."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.launch import specs
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(registry.get("yi-6b"), attention_impl="pallas")
+    traffic, max_len = dict(n=8, lo=256, hi=2048), 2304
+    if rehearsal:
+        cfg = dataclasses.replace(registry.smoke("yi-6b"), attention_impl="pallas")
+        traffic, max_len = dict(n=8, lo=8, hi=40), 64
+    prompt = serve_traffic(cfg.vocab_size, **traffic)[0]
+    log(f"== phase 22a: {cfg.name} on a (1, 1) mesh of one {mesh.device_type} rank: prefill of "
+        f"{len(prompt)} tokens and {steps} decode steps, DTensor against plain tensors")
+    t0 = time.perf_counter()
+    model = lm.init_lm(cfg, seed=0, device=dev)
+    _sync(dev)
+    log(f"22a: built in {time.perf_counter() - t0:.1f} s")
+    tokens = torch.as_tensor(prompt[None], device=dev)
+
+    def run(params, caches, feed=None):
+        _sync(dev)
+        t = time.perf_counter()
+        _reset_launches()
+        logits, caches = lm.prefill(params, cfg, tokens, caches)
+        _sync(dev)
+        pre_s, pre_launches = time.perf_counter() - t, fa.launches
+        logits = _full(logits)
+        fed = [int(torch.argmax(logits[0, -1]))] if feed is None else list(feed)
+        dec, dec_s = [], []
+        for j in range(steps):
+            tok = torch.tensor([[fed[j]]], device=dev)
+            _sync(dev)
+            t = time.perf_counter()
+            out, caches = lm.decode_step(params, cfg, tok, caches, len(prompt) + j)
+            _sync(dev)
+            dec_s.append(time.perf_counter() - t)
+            dec.append(_full(out)[0, -1])
+            if feed is None:
+                fed.append(int(torch.argmax(dec[-1])))
+        return dict(logits=logits, dec=torch.stack(dec), fed=fed[:steps], prefill_s=pre_s,
+                    decode_s=dec_s, prefill_launches=pre_launches,
+                    decode_launches=fa.launches - pre_launches)
+
+    plain = run(model, lm.init_caches(cfg, 1, max_len, dev))
+    caches = lm.init_caches(cfg, 1, max_len, dev)
+    dparams = _from_local(mesh, model, shd.param_shardings(mesh, model))
+    dcaches = specs.lay_out_caches(caches, specs.cache_placements(mesh, caches),
+                                   lambda t, p: _from_local(mesh, t, p))
+    with shd.use_mesh(mesh):
+        sharded = run(dparams, dcaches, feed=plain["fed"])
+    _bit_equal("22a prefill logits, DTensor against plain", sharded["logits"], plain["logits"])
+    _bit_equal(f"22a {steps} decode steps' logits, DTensor against plain", sharded["dec"],
+               plain["dec"])
+    out = {"prompt": len(prompt), "steps": steps,
+           "launches": {"prefill": sharded["prefill_launches"],
+                        "decode": sharded["decode_launches"]}}
+    for name, r in (("plain", plain), ("dtensor", sharded)):
+        out[name] = {"prefill_ms": r["prefill_s"] * 1e3,
+                     "decode_median_ms": float(np.median(r["decode_s"])) * 1e3,
+                     "decode_ms": [s * 1e3 for s in r["decode_s"]]}
+    log(f"22a: prefill {out['plain']['prefill_ms']:.2f} ms plain, "
+        f"{out['dtensor']['prefill_ms']:.2f} ms DTensor; decode median "
+        f"{out['plain']['decode_median_ms']:.2f} ms plain, "
+        f"{out['dtensor']['decode_median_ms']:.2f} ms DTensor (reported); B5 launches on the "
+        f"local-shard route {out['launches']}")
+    if dev.type == "cuda":
+        assert plain["prefill_launches"] == cfg.num_layers, plain["prefill_launches"]
+        assert out["launches"] == {"prefill": cfg.num_layers, "decode": 0}, out["launches"]
+    del model, dparams, dcaches, caches, plain, sharded
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_sharded_jamba(dev, mesh, *, rehearsal: bool, seq: int = 2048) -> dict:
+    """22b: one Jamba block at published widths, a Mamba mixer and a MoE FFN
+    of all 16 experts, prefill of ``seq`` tokens on a (1, 1) mesh under the
+    ambient mesh against the plain tensors: B6 on the local-shard route."""
+    from repro_torch.configs import registry
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
+    from repro_torch.models.blocks import apply_block, init_block
+
+    cfg = dataclasses.replace(registry.get("jamba-1.5-large-398b"), attention_impl="pallas",
+                              ssm_impl="pallas")
+    if rehearsal:
+        cfg = dataclasses.replace(registry.smoke("jamba-1.5-large-398b"), attention_impl="pallas",
+                                  ssm_impl="pallas")
+        seq = 40
+    log(f"== phase 22b: one {cfg.name} block (mamba + moe, d_model {cfg.d_model}, "
+        f"{cfg.num_experts} experts) over {seq} tokens on the (1, 1) mesh")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    block = init_block(gen, cfg, "mamba", "moe", torch.bfloat16)
+    x = torch.randn((1, seq, cfg.d_model), generator=gen, device=dev).to(torch.bfloat16)
+    pos = torch.arange(seq, device=dev)[None]
+    kw = dict(cfg=cfg, kinds=("mamba", "moe"), positions=pos, cache=None, mode="prefill")
+    _reset_launches()
+    y0, st0 = apply_block(block, x, **kw)
+    plain_launches = sc.launches
+    dblock = _from_local(mesh, block, shd.param_shardings(mesh, {"b": block})["b"])
+    dx = _from_local(mesh, x, shd.data_spec(mesh, 1, 2))
+    _sync(dev)
+    _reset_launches()
+    with shd.use_mesh(mesh):
+        y1, st1 = apply_block(dblock, dx, **kw)
+    _sync(dev)
+    launches = sc.launches
+    _bit_equal("22b block output, DTensor against plain", _full(y1), y0)
+    _bit_equal("22b final SSM state, DTensor against plain", _full(st1), st0)
+    chunks = -(-seq // cfg.ssm_chunk)
+    log(f"22b: B6 launches {launches} on the local-shard route ({plain_launches} plain; "
+        f"ceil({seq}/{cfg.ssm_chunk}) = {chunks})")
+    if dev.type == "cuda":
+        assert launches == plain_launches == chunks, (launches, plain_launches)
+    del block, dblock, x, dx, y0, y1, st0, st1
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"seq": seq, "launches": launches}
+
+
+def phase_b5_rank_shards(dev, *, rehearsal: bool, seq: int = 2048) -> dict:
+    """22c: B5 on each rank's query heads, with the key/value heads its
+    wrapper chooses, against the full kernel's rows: yi-6b's 32/4 heads of
+    128 over a model axis of 8 (the 4 key/value heads replicated) and of 2
+    (split), bit for bit."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    hq, hkv, d = 32, 4, 128
+    if rehearsal:
+        seq, d = 40, 16
+    log(f"== phase 22c: B5 on rank shards of (1, {hq}/{hkv}, {seq}, {d}) bf16, model axis 8 "
+        "and 2")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    q, k, v = (torch.randn((1, h, seq, d), generator=gen, device=dev).to(torch.bfloat16)
+               for h in (hq, hkv, hkv))
+    _reset_launches()
+    fa_ops.copies = 0
+    full = fa_ops.flash_attention(q, k, v, causal=True)
+    for model in (8, 2):
+        hl, split = hq // model, hkv % model == 0
+        for r in range(model):
+            kl, vl, off = k, v, 0
+            if split:
+                n = hkv // model
+                kl, vl, off = k[:, r * n:(r + 1) * n], v[:, r * n:(r + 1) * n], r * n
+            kr, vr = fa_ops.local_kv_heads(kl, vl, hq=hq, hkv=hkv, q_offset=r * hl, hq_local=hl,
+                                           kv_offset=off)
+            out = fa_ops.flash_attention(q[:, r * hl:(r + 1) * hl], kr, vr, causal=True)
+            if not torch.equal(out, full[:, r * hl:(r + 1) * hl]):
+                raise AssertionError(f"22c: model {model}, rank {r}: not bit-equal")
+        log(f"22c: model axis {model} ({'split' if split else 'replicated'} key/value heads): "
+            f"every rank's {hl} query heads bit-equal to the full kernel's rows")
+    launches = fa.launches
+    assert fa_ops.copies == 0, fa_ops.copies
+    if dev.type == "cuda":
+        assert launches == 1 + 8 + 2, launches
+    return {"seq": seq, "launches": launches}
+
+
+def phase_dry_run_report(runs: _DryRuns, smi: str) -> dict:
+    """22d: the dry run's cells, read back from their records."""
+    results = runs.wait()
+    cells = {}
+    failed = []
+    for (arch, shape, mp), (code, tail, seconds) in sorted(results.items()):
+        label = "2x32x8" if mp == "mp" else "32x8"
+        path = runs.out / f"{arch}_{shape}_{mp}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {"status": "missing"}
+        if code != 0 or rec["status"] != "ok":
+            failed.append((arch, shape, label, rec.get("error", tail)[-1500:]))
+            continue
+        c, t, m = rec["cost"], rec["roofline"], rec["memory"]
+        cells[f"{arch} {shape} {label}"] = {
+            "flops_per_device": c["flops"], "bytes_per_device": c["bytes"],
+            "collective_bytes_by_axis": c["collective_bytes_by_axis"],
+            "collective_counts": c["collective_counts"],
+            "argument_bytes": m["argument_size_in_bytes"],
+            "peak_bytes": m["peak_memory_in_bytes"], "bound": t["bound"],
+            "compute_s": t["compute_s"], "memory_s": t["memory_s"],
+            "collective_s": t["collective_s"], "roofline_fraction": t["roofline_fraction"],
+            "useful_flops_ratio": t["useful_flops_ratio"], "model_flops": t["model_flops"],
+            "seconds": rec["seconds"], "process_s": seconds,
+            "attention_impl": rec["attention_impl"], "ssm_impl": rec["ssm_impl"]}
+        log(f"22d {arch} x {shape} ({label}): {c['flops']:.4g} FLOP, {c['bytes']:.4g} B, "
+            f"collectives {c['collective_bytes_by_axis']} B, arguments "
+            f"{m['argument_size_in_bytes'] / 1e9:.3f} GB a device; bound {t['bound']}, roofline "
+            f"fraction {t['roofline_fraction']:.4f} (H100 SXM spec sheet); {rec['seconds']:.1f} s")
+    assert not failed, f"22d: dry run cells failed: {failed}"
+    from repro_torch.launch import report
+
+    recs = report.load_all(str(runs.out))
+    for label in ("32x8", "2x32x8"):
+        log(f"22d roofline, {label} (analytic bounds, H100 SXM spec sheet; launch/report.py):\n"
+            + report.fmt_table(recs, label))
+    return {"cells": cells, "wall_s": time.perf_counter() - runs.t0, "smi": smi}
+
+
+def phase_lm_sharding(dev, *, rehearsal: bool, smi: str) -> dict:
+    """Phase 22: 22a-c on one rank of a (1, 1) mesh and B5's rank shards on
+    the card, 22d the dry run on the card's host, all four in turn except
+    22d, which runs beside them."""
+    import shutil
+
+    from repro_torch.launch.mesh import make_mesh
+
+    log(f"== phase 22: the LM sharding rules on DTensor and the dry run on {smi}")
+    work = ROOT / "build" / "phase22"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    runs = _DryRuns(work, rehearsal=rehearsal)
+    dist = torch.distributed
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        out = {"22a": phase_sharded_yi(dev, mesh, rehearsal=rehearsal),
+               "22b": phase_sharded_jamba(dev, mesh, rehearsal=rehearsal)}
+    finally:
+        dist.destroy_process_group()
+    out["22c"] = phase_b5_rank_shards(dev, rehearsal=rehearsal)
+    out["22abc_s"] = time.perf_counter() - t0
+    out["22d"] = phase_dry_run_report(runs, smi)
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log("phase 22 summary: " + json.dumps(out, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-21 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-22 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -4654,6 +5013,7 @@ def main() -> int:
         phase_last_families(dev, rehearsal=True, smi="cpu (rehearsal)")
         phase_multi_device(dev, main_run["x"], main_run["y"], gf, rehearsal=True,
                            smi="cpu (rehearsal)")
+        phase_lm_sharding(dev, rehearsal=True, smi="cpu (rehearsal)")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -4694,6 +5054,7 @@ def main() -> int:
     families = phase_last_families(dev, rehearsal=False, smi=dev_info["smi"])
     multi = phase_multi_device(dev, train_data["x"], train_data["y"], gf7, rehearsal=False,
                                smi=dev_info["smi"])
+    sharding = phase_lm_sharding(dev, rehearsal=False, smi=dev_info["smi"])
     phase20_flash = families["20b"]["launches"] + families["20c"]["launches"]
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
@@ -4852,6 +5213,13 @@ def main() -> int:
             f"bytes at L 256, {inst['launches']} launches in phase 13")
     mma_ptxas = ssd["instances"]["mma"]["ptxas"]
     assert mma_ptxas["spill_store_bytes"] == mma_ptxas["spill_load_bytes"] == 0, mma_ptxas
+    # phase 22: B5 and B6 on DTensor shards (22a's prefill, 22b's block) and
+    # B5 on each rank's query heads (22c)
+    flash["phase22"] = {"22a_prefill": sharding["22a"]["launches"]["prefill"],
+                        "22c": sharding["22c"]["launches"]}
+    flash["launches"] += sum(flash["phase22"].values())
+    ssd["phase22"] = {"22b": sharding["22b"]["launches"]}
+    ssd["launches"] += ssd["phase22"]["22b"]
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(dev_info["smi"])
     print(json.dumps({"kernels": kernels}))

@@ -75,7 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.distributed import multihost
+from repro_torch.distributed import multihost, sharding
 from repro_torch.distributed.fault_tolerance import HostLossError
 from repro_torch.tree import Stacked
 
@@ -637,12 +637,21 @@ class CheckpointManager:
                 return step
         return None
 
-    def restore(self, step: int, target: Any, *, verify: bool = True) -> Any:
+    def restore(self, step: int, target: Any, *, verify: bool = True, mesh: Any = None,
+                placements: Any = None) -> Any:
         """Restore into the structure of ``target`` (values ignored); each
         leaf lands on the device of ``target``'s matching leaf, in the dtype
         the checkpoint holds.  With ``verify`` (default) the checksums are
         validated first, so corruption surfaces as
-        ``CheckpointCorruptionError`` instead of a garbage state."""
+        ``CheckpointCorruptionError`` instead of a garbage state.
+
+        Elastic restore: with a ``mesh`` and ``placements`` (a tree of
+        ``target``'s structure with a placement tuple for each tensor, as
+        ``sharding.param_shardings`` gives it), each leaf is laid out as a
+        DTensor on that mesh, which may differ from the mesh that saved it.
+        Every rank reads the checkpoint and keeps its own shards."""
+        if (mesh is None) != (placements is None):
+            raise ValueError("an elastic restore takes both mesh= and placements=")
         path = os.path.join(self.directory, f"step_{step}")
         pairs = _flatten(target)
         manifest = self.validate_step(step) if verify else self.manifest(step)
@@ -662,4 +671,7 @@ class CheckpointManager:
             dev = (leaf[0] if isinstance(leaf, Stacked) else leaf).device
             t = _to_tensor(data.pop(n), want, dev)
             flat.extend(t.unbind(0) if isinstance(leaf, Stacked) else [t])
-        return T.unflatten(target, flat)
+        restored = T.unflatten(target, flat)
+        if mesh is not None:
+            restored = sharding.distribute(mesh, restored, placements)
+        return restored

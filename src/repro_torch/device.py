@@ -20,3 +20,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def has_data(t: torch.Tensor) -> bool:
+    """Whether ``t`` holds values a host read can see: false for a fake
+    tensor (``FakeTensorMode``, the dry run's stand-ins) or a meta tensor,
+    and for a DTensor whose local shard is one."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    return not (t.is_meta or is_fake(t))

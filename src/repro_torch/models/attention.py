@@ -33,8 +33,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.device import has_data
+from repro_torch.distributed.sharding import ambient_mesh, constrain, maybe
+from repro_torch.kernels._shards import as_dtensor
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, init_dense
 
@@ -161,13 +165,58 @@ def _pallas_attn(q, k, v, *, causal: bool) -> torch.Tensor:
     return out.transpose(1, 2)
 
 
+def _inner_attn(q, k, v, *, impl: str, mode: str, causal: bool, block: int, k_len):
+    """q (B, Sq, H, D), k and v (B, Sk, Hkv, D) → (B, Sq, H, D) by ``impl``
+    (decode steps of ``naive`` and ``pallas`` take the naive route)."""
+    if impl == "chunked":
+        return _chunked_attn(q, k, v, causal=causal, block=block, k_len=k_len)
+    if impl == "naive" or mode == "decode":
+        return _naive_attn(q, k, v, causal=causal, k_len=k_len)
+    return _pallas_attn(q, k, v, causal=causal)
+
+
 def _project(src: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """src (B, S, D) @ w (D, H, Dh) → (B, S, H, Dh), in the promoted dtype
     of the two (as JAX's ``einsum`` promotes an f32 context against bf16
     weights)."""
     dt = torch.promote_types(src.dtype, w.dtype)
-    b, s, dm = src.shape
-    return (src.to(dt) @ w.reshape(dm, -1).to(dt)).view(b, s, w.shape[1], w.shape[2])
+    return _split_heads(src.to(dt) @ _flat(w).to(dt), w.shape[1])
+
+
+def _flat(w: torch.Tensor, *, out: bool = False) -> torch.Tensor:
+    """A (D, H, Dh) projection as (D, H·Dh), or with ``out`` the (H, Dh, D)
+    output projection as (H·Dh, D).  Under a mesh it is laid out so that a
+    split of H·Dh falls on whole heads (``model`` only where H divides it),
+    here and for its gradient: a split that H does not take evenly cannot
+    be viewed back as (H, Dh)."""
+    mesh = ambient_mesh()
+    if out:
+        w2 = w.reshape(-1, w.shape[2])
+        return w2 if mesh is None else constrain(w2, maybe(mesh, w.shape[0], "model"), "data")
+    w2 = w.reshape(w.shape[0], -1)
+    return w2 if mesh is None else constrain(w2, "data", maybe(mesh, w.shape[1], "model"))
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Dh) → (B, S, H·Dh), the flat result laid out on whole heads
+    under a mesh (``_flat``), and so its gradient."""
+    b, s, h, hd = t.shape
+    mesh = ambient_mesh()
+    if mesh is None:
+        return t.reshape(b, s, h * hd)
+    t = constrain(t, "batch", None, "model", None)
+    return constrain(t.reshape(b, s, h * hd), "batch", None, maybe(mesh, h, "model"))
+
+
+def _split_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """(B, S, H·Dh) → (B, S, H, Dh), laid out as the reference's projection
+    (the batch split, the heads over ``model`` where they divide it), the
+    flat product first on whole heads (``_flat``)."""
+    mesh = ambient_mesh()
+    if mesh is not None:
+        y = constrain(y, "batch", None, maybe(mesh, heads, "model"))
+    b, s, hd = y.shape
+    return constrain(y.view(b, s, heads, hd // heads), "batch", None, "model", None)
 
 
 def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -179,13 +228,40 @@ def _write_cache(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> None:
     bsz, s = k.shape[:2]
     s_max = cache.k.shape[1]
     idx = cache.length.long()
-    if idx.device.type == "cpu" and bool((idx + s > s_max).any()):
+    if isinstance(cache.k, DTensor):
+        return _write_cache_shards(cache, k, v)
+    if idx.device.type == "cpu" and has_data(idx) and bool((idx + s > s_max).any()):
         raise ValueError(f"cache write at lengths {idx.tolist()} + {s} past the cache's {s_max} "
                          "positions")
     rows = torch.arange(bsz, device=k.device)[:, None]
     cols = idx[:, None] + torch.arange(s, device=k.device)[None, :]
     cache.k[rows, cols] = k.to(cache.k.dtype)
     cache.v[rows, cols] = v.to(cache.v.dtype)
+
+
+def _write_cache_shards(cache: KVCache, k: torch.Tensor, v: torch.Tensor) -> None:
+    """``_write_cache`` for a cache of DTensors (laid out by
+    ``sharding.cache_spec``).  A cache split over the batch and the heads is
+    written in place on each rank's local shard, at its own slots' lengths.
+    A cache split over the sequence (long-context decode with a tiny batch)
+    takes one new position a step, selected into the positions of every
+    shard (out of place: ``cache.k`` and ``cache.v`` become new tensors)."""
+    mesh, pls = cache.k.device_mesh, cache.k.placements
+    k, v = (t.to(cache.k.dtype) for t in (k, v))
+    if any(isinstance(p, Shard) and p.dim == 1 for p in pls):
+        if k.shape[1] != 1:
+            raise NotImplementedError("a sequence-split cache takes one new position a step")
+        at = cache.length.long()[:, None] == torch.arange(cache.k.shape[1], device=k.device)
+        cache.k = torch.where(at[:, :, None, None], k, cache.k)
+        cache.v = torch.where(at[:, :, None, None], v, cache.v)
+        return
+    rows_pls = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in pls]
+    idx = as_dtensor(cache.length, mesh).redistribute(mesh, rows_pls).to_local().long()
+    kl, vl = (as_dtensor(t, mesh).redistribute(mesh, pls).to_local() for t in (k, v))
+    rows = torch.arange(kl.shape[0], device=kl.device)[:, None]
+    cols = idx[:, None] + torch.arange(kl.shape[1], device=kl.device)[None, :]
+    cache.k.to_local()[rows, cols] = kl
+    cache.v.to_local()[rows, cols] = vl
 
 
 def attention(
@@ -219,7 +295,7 @@ def attention(
             "Pallas flash kernel either; train with 'chunked' or 'naive'")
     b, s, dm = x.shape
     wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
-    q = (x @ wq.reshape(dm, -1)).view(b, s, wq.shape[1], wq.shape[2])
+    q = _split_heads(x @ _flat(wq), wq.shape[1])
     k, v = (_project(x if kv_x is None else kv_x, w) for w in (wk, wv))
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
@@ -241,12 +317,13 @@ def attention(
     elif mode == "prefill":
         new_cache = KVCache(k, v, torch.full((b,), s, dtype=torch.int32, device=x.device))
 
-    if impl == "chunked":
-        out = _chunked_attn(q, k, v, causal=causal, block=block, k_len=k_len)
-    elif impl == "naive" or mode == "decode":
-        out = _naive_attn(q, k, v, causal=causal, k_len=k_len)
+    if any(isinstance(t, DTensor) for t in (q, k, v)):
+        # on each rank's local shards: the batch and the heads split, the
+        # sequence whole, each rank's query heads with their key/value heads
+        out = fa_ops.on_shards(_inner_attn, q, k, v, head_dim=2, batch_args={"k_len": k_len},
+                               impl=impl, mode=mode, causal=causal, block=block)
     else:
-        out = _pallas_attn(q, k, v, causal=causal)
+        out = _inner_attn(q, k, v, impl=impl, mode=mode, causal=causal, block=block, k_len=k_len)
     h, hd = wo.shape[:2]
-    y = out.to(x.dtype).reshape(b, s, h * hd) @ wo.reshape(h * hd, dm)
+    y = _merge_heads(out.to(x.dtype)) @ _flat(wo, out=True)
     return y, new_cache

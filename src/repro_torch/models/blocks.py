@@ -21,6 +21,7 @@ from typing import Any
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, attention, init_attention
 from repro_torch.models.layers import init_mlp, mlp, rms_norm
@@ -146,10 +147,11 @@ def apply_block(
             y, st = slstm(p["mixer"], h, state=state, mode=mode)
         if mode in ("prefill", "decode"):
             new_cache = st
-    x = x + y
+    x = constrain(x + y, "batch", None, None)
 
     if ffn == "dense":
-        x = x + mlp(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+        x = constrain(x + mlp(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps)),
+                      "batch", None, None)
     elif ffn == "moe":
         x = x + moe_mod.moe(
             p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
@@ -158,6 +160,7 @@ def apply_block(
             group_size=cfg.moe_group_size,
             dropless=(mode == "decode"),  # tiny token count: exact routing
         )
+        x = constrain(x, "batch", None, None)
     return x, new_cache
 
 

@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from repro_torch.distributed.sharding import lookup_rows
 
 
 def _rms_norm_fwd(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
@@ -80,6 +83,10 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``; a DTensor table looks its rows up on each rank's
+    shard (``sharding.lookup_rows``)."""
+    if isinstance(table, DTensor):
+        return lookup_rows(table, tokens)
     return table[tokens]
 
 

@@ -38,10 +38,12 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import has_data, resolve_device
+from repro_torch.distributed.sharding import constrain, take_last
 from repro_torch.models.blocks import apply_block, init_block, init_block_cache
 from repro_torch.models.attention import KVCache
 from repro_torch.models.layers import embed, init_embedding, rms_norm, unembed
@@ -198,7 +200,7 @@ def forward(
     dev = table.device
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
-    x = embed(tokens, table)
+    x = constrain(embed(tokens, table), "batch", None, None)
     if context is not None:
         context = torch.as_tensor(context, device=dev)
     if cfg.is_encdec:
@@ -234,7 +236,7 @@ def forward(
             if new_caches is not None:
                 new_caches.append(nc)
     x = rms_norm(x, final_norm, cfg.norm_eps)
-    return unembed(x, table), new_caches
+    return constrain(unembed(x, table), "batch", None, "model"), new_caches
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -253,7 +255,10 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, 
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
     shifted = (logits - m).float()
     lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0].float()
-    label_logit = torch.gather(logits, -1, labels[..., None])[..., 0].float()
+    if isinstance(logits, DTensor):  # on the vocabulary's shards
+        label_logit = take_last(logits, labels).float()
+    else:
+        label_logit = torch.gather(logits, -1, labels[..., None])[..., 0].float()
     nll = lse - label_logit                                               # (B, S)
     mask = batch.get("loss_mask")
     mask = torch.ones_like(nll) if mask is None else torch.as_tensor(mask, device=dev)
@@ -288,7 +293,7 @@ def decode_step(params: dict, cfg: ModelConfig, token, caches: list, pos, *, con
     lengths to the host once per step.
     """
     kv = next((c for c in caches if isinstance(c, KVCache)), None)
-    if kv is not None:
+    if kv is not None and has_data(kv.length):
         s = torch.as_tensor(token).shape[1]
         lengths = kv.length.cpu()
         if bool((lengths + s > kv.k.shape[1]).any()):

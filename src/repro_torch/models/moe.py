@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import ambient_mesh, batch_entry, constrain
 from repro_torch.models.layers import init_dense
 
 
@@ -81,7 +82,7 @@ def moe(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
     if pad:  # padded tokens route too, and are cut off at the end
         tokens = F.pad(tokens, (0, 0, 0, pad))
     g = tokens.shape[0] // gs
-    xg = tokens.reshape(g, gs, d)
+    xg = constrain(tokens.reshape(g, gs, d), "batch", None, None)
 
     topv, topi = _router(params, xg, top_k)                                  # (g, gs, k)
     cap = max(1, int(gs / e * top_k * capacity_factor))
@@ -100,7 +101,14 @@ def moe(params, x: torch.Tensor, *, top_k: int, capacity_factor: float = 1.25,
     combine = torch.einsum("gske,gskc,gsk->gsec", keep, cap_onehot, topv.to(x.dtype))
 
     xe = torch.bmm(dispatch.reshape(g, gs, e * cap).transpose(1, 2), xg)     # (g, e*cap, d)
-    xe = xe.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xe = constrain(xe.reshape(g, e, cap, d), "batch", "model", None, None)  # EP: to the experts
+    xe = xe.transpose(0, 1).reshape(e, g * cap, d)
     ye = _experts(params, xe).reshape(e, g, cap, d).transpose(0, 1)         # (g, e, cap, d)
-    yg = torch.bmm(combine.reshape(g, gs, e * cap), ye.reshape(g, e * cap, d))
-    return yg.reshape(-1, d)[:t].reshape(b, s, d)
+    ye = constrain(ye, "batch", "model", None, None)
+    yg = constrain(torch.bmm(combine.reshape(g, gs, e * cap), ye.reshape(g, e * cap, d)),
+                   "batch", None, None)
+    y = yg.reshape(-1, d)[:t]
+    mesh = ambient_mesh()
+    if mesh is not None:  # the tokens split as the batch rows they came from
+        y = constrain(y, batch_entry(mesh, b), None)
+    return y.reshape(b, s, d)

@@ -17,7 +17,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
+from repro_torch.kernels import _shards
 from repro_torch.kernels.ssd_chunk import ops as ssd_ops
 from repro_torch.kernels.ssd_chunk.ref import ssd_scan_ref
 from repro_torch.models.layers import init_dense
@@ -86,8 +88,10 @@ def mamba(params, x: torch.Tensor, *, chunk: int = 256, state: torch.Tensor | No
         h_new = a[:, 0, :, None, None] * state + torch.einsum("bn,bhp->bhnp", b_proj[:, 0], xh[:, 0])
         y = torch.einsum("bn,bhnp->bhp", c_proj[:, 0], h_new)[:, None]    # (B, 1, H, P)
         new_state = h_new
-    elif impl == "pallas":
-        y, h_fin = ssd_ops.ssd_scan(xh, a, b_proj, c_proj, chunk=chunk, use_pallas=True)
+    elif impl == "pallas" or isinstance(xh, DTensor):
+        # DTensors (under a mesh) scan each rank's local shard, by either route
+        y, h_fin = ssd_ops.ssd_scan(xh, a, b_proj, c_proj, chunk=chunk,
+                                    use_pallas=impl == "pallas")
         new_state = h_fin if mode == "prefill" else None
     elif mode == "prefill":
         y, new_state = _ssd_chunk_scan(xh, a, b_proj, c_proj, chunk=chunk, return_state=True)
@@ -145,6 +149,13 @@ def _ssd_chunk_scan_per_head(x, a, b, c, *, chunk: int):
     return y[:, :, 0].reshape(B, H, S, P).transpose(1, 2), h[:, 0].reshape(B, H, N, P)
 
 
+def _mlstm_step(vals, f, k, q, *, state):
+    """One mLSTM token (S == 1) from ``state`` (B, H, P, P): (y (B, 1, H,
+    P), the new state)."""
+    h_new = f[:, 0, :, None, None] * state + torch.einsum("bhn,bhp->bhnp", k[:, 0], vals[:, 0])
+    return torch.einsum("bhn,bhnp->bhp", q[:, 0], h_new)[:, None], h_new
+
+
 def mlstm(params, x: torch.Tensor, *, chunk: int = 256, state: torch.Tensor | None = None,
           mode: str = "train") -> tuple[torch.Tensor, torch.Tensor | None]:
     """mLSTM matrix-memory mixer over x (B, S, D): C_t = f_t C_{t-1} +
@@ -167,12 +178,11 @@ def mlstm(params, x: torch.Tensor, *, chunk: int = 256, state: torch.Tensor | No
     if mode == "decode":
         if state is None or S != 1:
             raise ValueError("decode mode takes one token and a state")
-        h_new = f[:, 0, :, None, None] * state + torch.einsum(
-            "bhn,bhp->bhnp", k[:, 0].float(), vals[:, 0])
-        y = torch.einsum("bhn,bhnp->bhp", q[:, 0].float(), h_new)[:, None]
-        new_state = h_new
+        y, new_state = _on_local(_mlstm_step, vals, f, k.float(), q.float(), state=state,
+                                 state_dims={0: 0, 2: 1})
     else:
-        y, st = _ssd_chunk_scan_per_head(vals, f, k.float(), q.float(), chunk=chunk)
+        y, st = _on_local(lambda *t: _ssd_chunk_scan_per_head(*t, chunk=chunk),
+                          vals, f, k.float(), q.float(), state_dims={0: 0, 2: 1})
         new_state = st if mode == "prefill" else None
     y = y.reshape(B, S, d_inner)
     var = torch.mean(y * y, dim=-1, keepdim=True)
@@ -211,6 +221,51 @@ def _slstm_step(carry, zt, it, ft, ot):
     return (c_new, n_new, m_new), h
 
 
+def _slstm_scan(z, ig, fg, og):
+    """The sLSTM's loop over the tokens of (B, S, D) gates from the zero
+    state: (y (B, S, D), the final (c, n, m))."""
+    carry = slstm_state(z.shape[0], z.shape[2], z.device)
+    hs = []
+    for t in range(z.shape[1]):
+        carry, h = _slstm_step(carry, z[:, t], ig[:, t], fg[:, t], og[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), carry
+
+
+def _slstm_token(z, ig, fg, og, *, state):
+    """One sLSTM token (S == 1) from ``state`` (c, n, m): (y (B, 1, D), the
+    new state)."""
+    carry, h = _slstm_step(state, z[:, 0], ig[:, 0], fg[:, 0], og[:, 0])
+    return h[:, None], carry
+
+
+def _on_local(scan, *xs, state=None, state_dims: dict[int, int]):
+    """``scan(*xs[, state=])`` — a recurrence over dim 1 of inputs laid out
+    alike (batch at dim 0, an independent channel or head dim at 2)
+    returning (y, state) — as it is for plain tensors, and on each rank's
+    local shard for DTensors: the batch and dim-2 splits of the first input
+    kept, the time axis whole, the others laid out as the first; y laid out
+    as the inputs, each state tensor (a tensor or a tuple of them, given or
+    returned) by ``state_dims`` (an input dim -> its dim)."""
+    kw = {} if state is None else {"state": state}
+    if not any(isinstance(t, DTensor) for t in xs + (state if isinstance(state, tuple)
+                                                          else (state,))):
+        return scan(*xs, **kw)
+    mesh = next(t.device_mesh for t in xs if isinstance(t, DTensor))
+    xs = [_shards.as_dtensor(t, mesh) for t in xs]
+    pls = _shards.keep(xs[0].placements, (0, 2))
+    sp = _shards.follow(pls, state_dims)
+
+    def each(st, fn):
+        return tuple(fn(t) for t in st) if isinstance(st, tuple) else fn(st)
+
+    if state is not None:
+        kw["state"] = each(state, lambda t: _shards.as_dtensor(t, mesh).redistribute(
+            mesh, sp).to_local())
+    y, st = scan(*(t.redistribute(mesh, pls).to_local() for t in xs), **kw)
+    return _shards.to_global(y, mesh, pls), each(st, lambda t: _shards.to_global(t, mesh, sp))
+
+
 def slstm(params, x: torch.Tensor, *, state=None,
           mode: str = "train") -> tuple[torch.Tensor, tuple | None]:
     """sLSTM over x (B, S, D): the sequential scalar-memory LSTM with
@@ -228,16 +283,10 @@ def slstm(params, x: torch.Tensor, *, state=None,
     if mode == "decode":
         if state is None or S != 1:
             raise ValueError("decode mode takes one token and a state")
-        carry, h = _slstm_step(tuple(state), z[:, 0], ig[:, 0], fg[:, 0], og[:, 0])
-        y = h[:, None]
-        new_state = carry
+        y, new_state = _on_local(_slstm_token, z, ig, fg, og, state=tuple(state),
+                                 state_dims={0: 0, 2: 1})
     else:
-        carry = slstm_state(B, D, x.device)
-        hs = []
-        for t in range(S):
-            carry, h = _slstm_step(carry, z[:, t], ig[:, t], fg[:, t], og[:, t])
-            hs.append(h)
-        y = torch.stack(hs, dim=1)
+        y, carry = _on_local(_slstm_scan, z, ig, fg, og, state_dims={0: 0, 2: 1})
         new_state = carry if mode == "prefill" else None
     return y.to(x.dtype) @ params["w_out"], new_state
 

@@ -24,7 +24,8 @@ class Optimizer(NamedTuple):
 
 
 def _zeros32(p: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """f32 zeros laid out as ``p`` (a DTensor's moments are sharded as it is)."""
+    return torch.zeros_like(p, dtype=torch.float32, memory_format=torch.contiguous_format)
 
 
 def _device(params: Any) -> torch.device:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import lm
 from repro_torch.optim.optimizers import Optimizer, clip_by_global_norm
 
@@ -96,7 +97,7 @@ def make_prefill_step(cfg: ModelConfig):
         logits, caches = lm.prefill(params, cfg, batch["tokens"], caches,
                                     context=batch.get("context"))
         # next-token for the last position of every request
-        return torch.argmax(logits[:, -1, :], dim=-1), caches
+        return _next_token(logits), caches
 
     return prefill_step
 
@@ -107,6 +108,13 @@ def make_serve_step(cfg: ModelConfig):
     def serve_step(params, caches, batch):
         logits, caches = lm.decode_step(params, cfg, batch["token"], caches, batch["pos"],
                                         context=batch.get("context"))
-        return torch.argmax(logits[:, -1, :], dim=-1), caches
+        return _next_token(logits), caches
 
     return serve_step
+
+
+def _next_token(logits: torch.Tensor) -> torch.Tensor:
+    """The argmax of each request's last logits.  Under a mesh the row is
+    gathered whole over the vocabulary's shards first (an argmax across
+    shards is not a sum)."""
+    return torch.argmax(constrain(logits[:, -1, :], "batch", None), dim=-1)
