@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py                   # needs a CUDA card; exits non-zero without one
-    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-22 (tests only)
+    python3 chip_smoke.py --cpu-rehearsal   # tiny CPU rehearsal of phases 1, 5-9, 12-23 (tests only)
 
 Phases, in order; any failure ends the run with a non-zero exit:
 
@@ -247,6 +247,17 @@ Phases, in order; any failure ends the run with a non-zero exit:
     bytes, collective bytes by axis, argument bytes, the H100 spec sheet's
     bound and roofline fraction, seconds.  Records under the git-ignored
     ``build/phase22/``, removed at the end.
+23. the port's six examples (``examples/torch/*.py``) in this process
+    through their ``main(argv)`` on the card, each with its own asserts
+    (every request answered, the artifact reused, targeted coverage above
+    untargeted, the loss falling, the resume exact): (a) all six at their
+    own sizes, the reference examples' (``serve_lm``, ``serve_selection``,
+    ``quickstart``, ``tune_hparams``, ``targeted_selection``,
+    ``train_lm_milo``), on the plain routes their defaults take; (b)
+    ``quickstart``, ``tune_hparams`` and ``train_lm_milo`` again with
+    ``--use-pallas`` (the dense Gram through B1; ``quickstart``'s launches
+    asserted).  Wall time, exit status and each kernel's launches per run.
+    Paths under the git-ignored ``build/phase23/``, removed at the end.
 
 Then the ``-Xptxas -v`` registers, spills and dynamic shared memory of the
 redesigned kernels, one ``{"kernels": [...]}`` line (launches: each kernel's path —
@@ -255,7 +266,8 @@ dense ``fl_gains`` kernel, 12 and 20 for flash attention, 13 for the SSD chunk; 
 also carry their phase 16 launches and errors, B4 its phase 17 launches and
 its time, bound and error at CRAIG's shape, B1 its phase 19 launches, B5
 its phase 20 launches by shape and its times at phase 20's shapes, B2 and
-B3 their phase 21 launches per rank, B5 and B6 their phase 22 launches),
+B3 their phase 21 launches per rank, B5 and B6 their phase 22 launches,
+every kernel its phase 23 launches per example run),
 the card's name and power limit, and, last,
 ``{"ok": true, "device": {"platform": "gpu", ...}}``.
 """
@@ -4295,7 +4307,7 @@ def _phase21_train(mode: str, data_path: str, ckpt: str, hb: str, out: str, size
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     dev = dev or _phase21_device()
-    multihost.initialize(timeout=60.0)
+    multihost.initialize(timeout=60.0, device=dev)
     with np.load(data_path) as f:
         x, y = f["x"], f["y"]
     n, d = x.shape
@@ -4975,10 +4987,99 @@ def phase_lm_sharding(dev, *, rehearsal: bool, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the port's six examples on the card
+# ---------------------------------------------------------------------------
+
+#: the examples in phase 23's order (the two serving flows first)
+EXAMPLES = ("serve_lm", "serve_selection", "quickstart", "tune_hparams", "targeted_selection",
+            "train_lm_milo")
+#: the examples with a kernel route (``--use-pallas``: B1 for the dense Gram)
+PALLAS_EXAMPLES = ("quickstart", "tune_hparams", "train_lm_milo")
+#: ``--cpu-rehearsal``'s sizes; the card runs the examples' own defaults
+REHEARSAL_ARGV = {"serve_lm": ["--requests", "4", "--max-new", "4"],
+                  "serve_selection": ["--n", "600", "--max-budget", "3"],
+                  "quickstart": ["--n", "1200", "--epochs", "4"],
+                  "tune_hparams": ["--n", "600", "--max-budget", "3"],
+                  "targeted_selection": ["--n", "1200"],
+                  "train_lm_milo": ["--steps", "40"]}
+
+
+def _kernel_launches() -> dict:
+    """Each hand-written kernel's launches since the last reset."""
+    from repro_torch.kernels.fl_gains import fl_gains as fk
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.kernels.similarity import similarity as sk
+    from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
+
+    return {"similarity": sk.launches, **fk.launches, "flash_attention": fa.launches,
+            "ssd_chunk": sc.launches}
+
+
+def _load_example(name: str):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"torch_example_{name}",
+                                                  ROOT / "examples" / "torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _run_example(name: str, argv: list[str], dev) -> dict:
+    """One example through its ``main(argv)``, in this process; its own
+    asserts hold or the phase fails.  Wall time and kernel launches."""
+    main_fn = _load_example(name).main
+    gc.collect()
+    _reset_launches()
+    t0 = time.perf_counter()
+    result = main_fn(argv)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _kernel_launches()
+    log(f"23 {name} {' '.join(argv)}: exit 0, {wall:.2f} s, launches "
+        f"{ {k: v for k, v in launches.items() if v} or 'none' }")
+    return {"argv": argv, "status": 0, "wall_s": wall, "launches": launches, "result": result}
+
+
+def phase_examples(dev, *, rehearsal: bool, smi: str) -> dict:
+    """Phase 23: (a) the six ``examples/torch`` flows through their ``main``
+    at the examples' own sizes (the reference's), on the card; (b) the three
+    with a dense Gram again with ``--use-pallas`` (B1)."""
+    import shutil
+
+    log(f"== phase 23: the six examples on {smi}")
+    work = ROOT / "build" / "phase23"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = {"quickstart": ["--artifact", str(work / "quickstart.npz")],
+             "serve_selection": ["--store-root", str(work / "store")],
+             "train_lm_milo": ["--ckpt", str(work / "lm_ckpt")]}
+    t0 = time.perf_counter()
+    out: dict = {"23a": {}, "23b": {}}
+    for name in EXAMPLES:
+        argv = ["--device", dev.type, *paths.get(name, []),
+                *(REHEARSAL_ARGV[name] if rehearsal else [])]
+        out["23a"][name] = _run_example(name, argv, dev)
+    for name in PALLAS_EXAMPLES:
+        argv = [*out["23a"][name]["argv"], "--use-pallas"]
+        out["23b"][name] = _run_example(name, argv, dev)
+    if dev.type == "cuda":
+        # the dense preprocess builds its class Grams through B1
+        assert out["23b"]["quickstart"]["launches"]["similarity"] >= 1, out["23b"]["quickstart"]
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log("phase 23 summary: " + json.dumps(
+        {sub: {name: {k: r[k] for k in ("wall_s", "status", "launches")}
+               for name, r in runs.items()} for sub, runs in out.items() if sub != "seconds"}
+        | {"seconds": out["seconds"]}, default=str))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
-                    help="run phases 1, 5-9 and 12-22 on the CPU at a tiny size (tests only)")
+                    help="run phases 1, 5-9 and 12-23 on the CPU at a tiny size (tests only)")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -5014,6 +5115,7 @@ def main() -> int:
         phase_multi_device(dev, main_run["x"], main_run["y"], gf, rehearsal=True,
                            smi="cpu (rehearsal)")
         phase_lm_sharding(dev, rehearsal=True, smi="cpu (rehearsal)")
+        phase_examples(dev, rehearsal=True, smi="cpu (rehearsal)")
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"ok": True, "rehearsal": "cpu"}))
         return 0
@@ -5055,6 +5157,7 @@ def main() -> int:
     multi = phase_multi_device(dev, train_data["x"], train_data["y"], gf7, rehearsal=False,
                                smi=dev_info["smi"])
     sharding = phase_lm_sharding(dev, rehearsal=False, smi=dev_info["smi"])
+    examples = phase_examples(dev, rehearsal=False, smi=dev_info["smi"])
     phase20_flash = families["20b"]["launches"] + families["20c"]["launches"]
     fl_src = "src/repro_torch/csrc/fl_gains.cu"
     fl_rows = [
@@ -5220,6 +5323,11 @@ def main() -> int:
     flash["launches"] += sum(flash["phase22"].values())
     ssd["phase22"] = {"22b": sharding["22b"]["launches"]}
     ssd["launches"] += ssd["phase22"]["22b"]
+    # phase 23: each kernel's launches in each example run
+    for kern in kernels:
+        kern["phase23"] = {f"{sub} {name}": run["launches"][kern["name"]]
+                           for sub in ("23a", "23b") for name, run in examples[sub].items()}
+        kern["launches"] += sum(kern["phase23"].values())
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(dev_info["smi"])
     print(json.dumps({"kernels": kernels}))

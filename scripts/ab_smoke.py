@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Run ``chip_smoke.py`` of two checkouts of the repo in turn on one card.
 
-    python3 scripts/ab_smoke.py PARENT CHANGE [--order PCCP] [--out build/ab_logs] [--serving]
+    python3 scripts/ab_smoke.py PARENT CHANGE [--order PCCP] [--out build/ab_logs] [--serving | --training]
 
 PARENT and CHANGE are directories that each hold a checkout (for example
 ``git archive <commit>`` unpacked); the runs go in ``--order`` (P for the
@@ -21,7 +21,10 @@ runs' artifacts differ.
 With ``--serving`` each run drives only phases 1, 2, 12 and 13 of its
 checkout's smoke (device, kernel build, yi-6b and Jamba serving through
 ``ServeEngine``), whose prefill and decode lines are printed; no artifact
-is saved, so none is compared.
+is saved, so none is compared.  With ``--training`` each run drives phases
+1, 2, 5, 14 and 15 (device; kernel build; the main path at full width, whose artifact
+digests are compared; fused training against the step loop; tuning), whose
+stage, train and sweep lines are printed.
 """
 from __future__ import annotations
 
@@ -46,18 +49,20 @@ KEYS = ("fl_gains_gram_free (8192, 8192, 768), ", "  on the card alone", "  boun
         "ssd_chunk: ", "ssd_chunk simt instance: ", "mma.sync TF32 sums", "ssd_chunk jamba",
         "  ssd_chunk", "ssd_chunk mma: {", "ssd_chunk simt: {",
         "yi-6b: served", "jamba-1.5-large-398b: served", "  prefill per request", "  decode steps",
-        "  launches: flash_attention", "  ssd_chunk launches expected", "jamba request 0")
+        "  launches: flash_attention", "  ssd_chunk launches expected", "jamba request 0",
+        # phases 14-15: the step loop, the fused engine, the three sweeps
+        "loop: ", "fused: ", "full: ", "milo: ", "milo_fixed: ")
 
 
-def run_smoke(tree: Path, serving: bool = False) -> None:
+def run_smoke(tree: Path, mode: str | None = None) -> None:
     """Run ``tree``'s ``chip_smoke.py`` as ``__main__`` with the digest hook,
-    or only its serving phases (``serving``)."""
+    or only its serving phases (``mode="serving"``) or its training and
+    tuning phases (``mode="training"``, with the hook)."""
     import numpy as np
+    import torch
 
     sys.path.insert(0, str(tree / "src"))
-    if serving:
-        import torch
-
+    if mode == "serving":
         smoke = runpy.run_path(str(tree / "chip_smoke.py"), run_name="chip_smoke_ab")
         smoke["phase_device"](False)
         smoke["phase_build"]()
@@ -75,6 +80,16 @@ def run_smoke(tree: Path, serving: bool = False) -> None:
         save(self, path)
 
     MiloMetadata.save = save_and_digest
+    if mode == "training":
+        smoke = runpy.run_path(str(tree / "chip_smoke.py"), run_name="chip_smoke_ab")
+        smoke["phase_device"](False)
+        smoke["phase_build"]()
+        dev = torch.device("cuda")
+        run = smoke["phase_main_path"](dev, n=60000, n_classes=10, dim=768, epochs=12)
+        data = [run[k] for k in ("x", "y", "tx", "ty")]
+        smoke["phase_fused_training"](dev, *data, run["session"].metadata, epochs=12)
+        smoke["phase_tuning"](dev, *data, run["session"].metadata)
+        return
     sys.argv = [str(tree / "chip_smoke.py")]
     runpy.run_path(str(tree / "chip_smoke.py"), run_name="__main__")
 
@@ -85,11 +100,15 @@ def main() -> int:
     ap.add_argument("change", type=Path, nargs="?")
     ap.add_argument("--order", default="PCCP")
     ap.add_argument("--out", type=Path, default=Path("build/ab_logs"))
-    ap.add_argument("--serving", action="store_true", help="phases 1, 2, 12 and 13 only")
+    modes = ap.add_mutually_exclusive_group()
+    modes.add_argument("--serving", dest="mode", action="store_const", const="serving",
+                       help="phases 1, 2, 12 and 13 only")
+    modes.add_argument("--training", dest="mode", action="store_const", const="training",
+                       help="phases 1, 2, 5, 14 and 15 only")
     ap.add_argument("--run", type=Path, help=argparse.SUPPRESS)  # one run, in a child process
     args = ap.parse_args()
     if args.run:
-        run_smoke(args.run.resolve(), args.serving)
+        run_smoke(args.run.resolve(), args.mode)
         return 0
     if args.parent is None or args.change is None or set(args.order) - {"P", "C"}:
         ap.error("give PARENT and CHANGE, and an --order of P and C")
@@ -102,7 +121,7 @@ def main() -> int:
         t0 = time.perf_counter()
         with open(log, "w") as f:
             cmd = [sys.executable, str(Path(__file__).resolve()), "--run", str(tree)]
-            rc = subprocess.run(cmd + ["--serving"] * args.serving,
+            rc = subprocess.run(cmd + ([f"--{args.mode}"] if args.mode else []),
                                 stdout=f, stderr=subprocess.STDOUT).returncode
         lines = log.read_text().splitlines()
         print(f"== run {i} {label} ({tree}): exit {rc}, {time.perf_counter() - t0:.0f} s, "
@@ -117,9 +136,10 @@ def main() -> int:
     same = all(len(v) == 1 for v in digests.values())
     for key, values in sorted(digests.items()):
         print(f"{key}: {'the same in every run' if len(values) == 1 else 'DIFFERS: ' + str(values)}")
-    if not digests and not args.serving:
+    serving = args.mode == "serving"
+    if not digests and not serving:
         print("no artifact digests were printed")
-    return 1 if failed or not same or not (digests or args.serving) else 0
+    return 1 if failed or not same or not (digests or serving) else 0
 
 
 if __name__ == "__main__":

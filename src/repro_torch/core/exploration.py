@@ -1,10 +1,13 @@
-"""WRE sampling (paper §3.1.2): Taylor-softmax probabilities and weighted
-sampling without replacement.  Port of ``repro.core.exploration``.
+"""Data-exploration strategies (paper §3.1.2): Taylor-softmax
+probabilities, weighted sampling without replacement, the WRE distribution
+and the SGE subset bank.  Port of ``repro.core.exploration``.
 
 Sampling without replacement uses the Efraimidis–Spirakis race in Gumbel
 form, ``top_k(log p + Gumbel)``, one device op over the whole dataset.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -46,3 +49,36 @@ def weighted_sample_without_replacement(
     logp = torch.where(p > 0.0, torch.log(p.clamp_min(1e-30)),
                        torch.full_like(p, float("-inf")))
     return (logp + noise).topk(k).indices
+
+
+class WREDistribution(NamedTuple):
+    """Multinomial sampling distribution over the dataset (global indices)."""
+
+    probs: torch.Tensor        # (m,) float32, sums to 1
+    importance: torch.Tensor   # (m,) float32 raw greedy gains (diagnostics / metadata)
+
+    def sample(self, k: int, *, generator: torch.Generator | None = None,
+               noise=None) -> torch.Tensor:
+        return weighted_sample_without_replacement(self.probs, k, generator=generator,
+                                                   noise=noise)
+
+
+class SGEBank(NamedTuple):
+    """Pre-selected subset bank from SGE (global indices)."""
+
+    subsets: torch.Tensor  # (n_subsets, k) integer
+
+    @property
+    def n_subsets(self) -> int:
+        return int(self.subsets.shape[0])
+
+    def subset_for_epoch(self, epoch: int, R: int) -> torch.Tensor:
+        """Rotate through the bank every R epochs."""
+        return self.subsets[(epoch // max(R, 1)) % self.n_subsets]
+
+
+def build_wre(importance) -> WREDistribution:
+    """The WRE distribution of ``importance`` (a tensor or an array; kept on
+    its device): Taylor-softmax probabilities in f32."""
+    imp = torch.as_tensor(importance).to(torch.float32)
+    return WREDistribution(probs=taylor_softmax(imp), importance=imp)

@@ -1,12 +1,15 @@
-"""Synthetic datasets for the smoke run and the tests (copies of
-``GaussianMixtureDataset`` and ``TokenLMDataset`` from
-``repro.data.datasets``; numpy only, so the same seed gives the same data in
-both packages).
+"""Synthetic datasets for the examples, the smoke run and the tests (copies
+of ``repro.data.datasets``; numpy only, so the same seed gives the same data
+in both packages).
 
-``GaussianMixtureDataset`` — c well-separated class clusters with dense cores
-and sparse tails, so representation vs diversity set functions behave as in
-the paper (graph-cut picks core/"easy", disparity picks tail/"hard"
-samples), with a linear-probe-able label structure.
+* ``GaussianMixtureDataset`` — c well-separated class clusters with dense
+  cores and sparse tails, so representation vs diversity set functions
+  behave as in the paper (graph-cut picks core/"easy", disparity picks
+  tail/"hard" samples), with a linear-probe-able label structure.
+* ``SyntheticTextDataset`` — token sequences from per-class Markov chains
+  (a TREC6-like task), with encoder features = normalized bigram
+  histograms (the frozen-encoder stand-in).
+* ``TokenLMDataset`` — next-token LM documents for the LM examples.
 """
 from __future__ import annotations
 
@@ -61,6 +64,50 @@ class GaussianMixtureDataset:
             idx[n_test : n_test + n_val],
             idx[:n_test],
         )
+
+
+@dataclasses.dataclass
+class SyntheticTextDataset:
+    """Per-class Markov-chain token sequences (TREC6-like 6-way task)."""
+
+    n: int = 1200
+    n_classes: int = 6
+    vocab: int = 64
+    seq_len: int = 32
+    seed: int = 0
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # class-specific transition matrices (sparse, peaked)
+        self.trans = rng.dirichlet(np.full(self.vocab, 0.05), size=(self.n_classes, self.vocab))
+        per = self.n // self.n_classes
+        toks, ys = [], []
+        for c in range(self.n_classes):
+            for _ in range(per):
+                seq = [int(rng.integers(self.vocab))]
+                for _ in range(self.seq_len - 1):
+                    seq.append(int(rng.choice(self.vocab, p=self.trans[c, seq[-1]])))
+                toks.append(seq)
+                ys.append(c)
+        self.tokens = np.asarray(toks, np.int32)
+        self.y = np.asarray(ys, np.int64)
+        self.n = len(self.tokens)
+
+    def features(self) -> np.ndarray:
+        """Frozen-encoder stand-in: L2-normalized bigram histograms."""
+        f = np.zeros((self.n, self.vocab * 8), np.float32)
+        for i, seq in enumerate(self.tokens):
+            for a, b in zip(seq[:-1], seq[1:]):
+                f[i, (a * 131 + b) % f.shape[1]] += 1.0
+        f /= np.maximum(np.linalg.norm(f, axis=1, keepdims=True), 1e-6)
+        return f
+
+    def split(self, val_frac: float = 0.1, test_frac: float = 0.2, seed: int = 42):
+        rng = np.random.default_rng(seed)
+        idx = rng.permutation(self.n)
+        n_test = int(self.n * test_frac)
+        n_val = int(self.n * val_frac)
+        return idx[n_test + n_val:], idx[n_test : n_test + n_val], idx[:n_test]
 
 
 @dataclasses.dataclass

@@ -1,7 +1,10 @@
 """Host input pipeline with first-class subset selection (port of
 ``repro.data.pipeline``).
 
-Each epoch the pipeline asks its selector for a ``SelectionPlan``, shuffles
+Each epoch the pipeline asks its selector for a ``SelectionPlan`` (a
+selector that speaks only the legacy ``indices_for_epoch`` protocol is
+wrapped at first use by ``selection.base.ensure_selector``: uniform
+weights, the phase inferred from the object), shuffles
 it with the reference's numpy permutation seeded ``seed * 1_000_003 +
 epoch`` (so both packages visit the same batches in the same order), tiles
 it into batches and yields host arrays, the plan weights riding along under
@@ -13,7 +16,9 @@ the epoch's whole permuted (indices, weights) stream as two tensors on
 ``device``, one copy an epoch, and the fused engine (``train.engine``)
 gathers each batch on the device.  The index stream is the same function
 of (seed, epoch, step) as ``epoch()``'s, so the loop and fused paths
-consume identical batches.
+consume identical batches.  ``resident`` names externally owned device
+copies of the same columns (``serve.BufferRegistry``'s), which the
+``Trainer`` then gathers from instead of placing its own.
 
 Background prefetch (``prefetch=True``, the default): a one-slot daemon
 thread assembles the next host batches (a queue of 2) while the consumer
@@ -29,12 +34,29 @@ from __future__ import annotations
 import dataclasses
 import queue
 import threading
-from typing import Any, Callable, Iterator
+from typing import Any, Callable, Iterator, Protocol
 
 import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+
+class Selector(Protocol):
+    """Deprecated structural protocol — prefer ``repro_torch.selection.Selector``."""
+
+    def indices_for_epoch(self, epoch: int) -> np.ndarray: ...
+
+
+@dataclasses.dataclass
+class FullSelector:
+    """No selection: the whole dataset every epoch (legacy protocol; new code
+    should use ``build_selector("full", n=...)``)."""
+
+    n: int
+
+    def indices_for_epoch(self, epoch: int) -> np.ndarray:
+        return np.arange(self.n, dtype=np.int64)
 
 
 class _WorkerError:
@@ -47,7 +69,7 @@ class _WorkerError:
 @dataclasses.dataclass
 class Pipeline:
     make_batch: Callable[[np.ndarray], dict] | None  # indices -> host batch
-    selector: Any                              # anything with plan(epoch)
+    selector: Any              # plan(epoch), or legacy indices_for_epoch(epoch)
     batch_size: int
     seed: int = 0
     drop_remainder: bool = True
@@ -59,12 +81,18 @@ class Pipeline:
     # derives it); custom batch assembly must leave this unset — consumers
     # then take the host step loop.
     arrays: dict[str, np.ndarray] | None = None
+    # externally owned device tensors of the SAME columns (e.g. a
+    # ``serve.BufferRegistry``'s): the Trainer's fused path gathers from
+    # them instead of placing its own copy, so concurrent trainers over one
+    # dataset share one buffer per column; same keys and shapes as ``arrays``
+    resident: dict[str, torch.Tensor] | None = None
     # where batches and the device-resident stream go (the card unless the
     # caller asks for the CPU); resolved at first use
     device: str | torch.device = "cuda"
 
     def __post_init__(self):
         self._plan_cache: tuple[int, Any] | None = None
+        self._plan_selector: Any = None
         if self.arrays is not None:
             lengths = {k: len(v) for k, v in self.arrays.items()}
             if len(set(lengths.values())) > 1:
@@ -73,6 +101,18 @@ class Pipeline:
                 raise ValueError(
                     f"arrays column {self.weight_key!r} collides with "
                     "weight_key: plan weights would silently shadow it")
+        if self.resident is not None:
+            if self.arrays is None:
+                raise ValueError("resident buffers require the arrays column store they mirror")
+            if set(self.resident) != set(self.arrays):
+                raise ValueError(
+                    f"resident buffers cover {sorted(self.resident)} but the column store "
+                    f"holds {sorted(self.arrays)}; they must mirror the same columns")
+            for k, buf in self.resident.items():
+                if tuple(buf.shape) != tuple(np.shape(self.arrays[k])):
+                    raise ValueError(
+                        f"resident buffer {k!r} has shape {tuple(buf.shape)} but the host "
+                        f"column is {tuple(np.shape(self.arrays[k]))}")
         if self.make_batch is None:
             if self.arrays is None:
                 raise ValueError("make_batch=None requires arrays")
@@ -96,7 +136,12 @@ class Pipeline:
         """The selector's (cached) SelectionPlan for this epoch."""
         if self._plan_cache is not None and self._plan_cache[0] == epoch:
             return self._plan_cache[1]
-        plan = self.selector.plan(epoch)
+        if self._plan_selector is None:
+            # deferred: data sits below selection in the layering
+            from repro_torch.selection.base import ensure_selector
+
+            self._plan_selector = ensure_selector(self.selector)
+        plan = self._plan_selector.plan(epoch)
         self._plan_cache = (epoch, plan)
         return plan
 
@@ -106,6 +151,10 @@ class Pipeline:
         rng = np.random.default_rng(self.seed * 1_000_003 + epoch)
         perm = rng.permutation(len(plan.indices))
         return plan.indices[perm], plan.weights[perm]
+
+    def epoch_indices(self, epoch: int) -> np.ndarray:
+        """The epoch's indices in their visit order."""
+        return self._permuted(epoch)[0]
 
     def steps_per_epoch(self, epoch: int = 0) -> int:
         n = len(self.plan_for_epoch(epoch).indices)

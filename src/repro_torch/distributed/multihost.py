@@ -47,6 +47,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.distributed.fault_tolerance import HostLossError
 
 _HOST_RE = re.compile(r"^host_(\d+)\.json$")
@@ -95,12 +96,14 @@ def choose_backend(backend: str | None, local_processes: int) -> str:
 
 
 def local_device() -> torch.device:
-    """The device this rank computes on (set by ``initialize``: its own card
-    under NCCL, a card shared round-robin under gloo when the host has one);
-    without ``initialize``, the current card or the CPU."""
+    """The device this rank computes on, as ``initialize`` resolved it (its
+    own card under NCCL, a card shared round-robin under gloo, or the CPU
+    when the caller asked for it); without ``initialize``, the current card,
+    and without a card this raises: the port never picks the CPU on its
+    own."""
     if _STATE["device"] is not None:
         return _STATE["device"]
-    return torch.device("cuda") if torch.cuda.is_available() else torch.device("cpu")
+    return resolve_device("cuda")
 
 
 def local_layout(store, process_id: int, num_processes: int, *, host: str | None = None,
@@ -129,6 +132,7 @@ def initialize(
     *,
     backend: str | None = None,
     timeout: float = 120.0,
+    device: str | torch.device = "cuda",
 ) -> bool:
     """Idempotent ``torch.distributed`` start with env-driven defaults.
 
@@ -139,6 +143,11 @@ def initialize(
     barrier's default and every collective: a peer that died makes the
     survivors raise within it instead of hanging (under NCCL,
     ``TORCH_NCCL_ASYNC_ERROR_HANDLING`` is set for that).
+
+    ``device`` is resolved before the store is created: ``"cuda"`` (the
+    default) raises without a card, and each rank then takes card
+    ``local_rank % device_count``; ``"cpu"`` runs the ranks on the CPU over
+    gloo.
     """
     if is_initialized():
         return False
@@ -153,6 +162,9 @@ def initialize(
         return False
     if process_id is None or not 0 <= process_id < num_processes:
         raise ValueError(f"process_id={process_id} out of range [0, {num_processes})")
+    device = resolve_device(device)
+    if device.type == "cpu" and backend not in (None, "gloo"):
+        raise ValueError(f"device='cpu' runs on gloo; backend={backend!r} cannot")
     dist = torch.distributed
     host, port = coordinator_address.rsplit(":", 1)
     td = datetime.timedelta(seconds=float(timeout))
@@ -163,11 +175,12 @@ def initialize(
         local_i = int(os.environ.get("LOCAL_RANK") or process_id)
     else:
         local_n, local_i = local_layout(store, process_id, num_processes, timeout=timeout)
-    backend = choose_backend(backend, local_n)
-    device = torch.device("cpu")
-    if torch.cuda.is_available():
+    if device.type == "cuda":
+        backend = choose_backend(backend, local_n)
         device = torch.device("cuda", local_i % torch.cuda.device_count())
         torch.cuda.set_device(device)
+    else:
+        backend = "gloo"
     if backend == "nccl":
         os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
     dist.init_process_group(backend, store=store, rank=process_id,

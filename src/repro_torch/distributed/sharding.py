@@ -106,6 +106,7 @@ class SelectionMesh:
         self.size = len(self.ranks)
         self.rank = rank
         self.axis = axis
+        # descriptive (repr): the engines compute on their inputs' device
         self.device = torch.device("cpu") if device is None else device
         self.backend = backend
         self.shape = {axis: self.size}
@@ -254,9 +255,10 @@ def selection_mesh(n_devices: int | None = None, *, axis: str = SELECTION_AXIS) 
     else:
         me = dist.get_rank()
         group = world_group if n == world else dist.new_group(list(range(n)))
+        # without a card every rank is a CPU process (the mesh's default)
+        dev = multihost.local_device() if torch.cuda.is_available() else None
         mesh = SelectionMesh(group, tuple(range(n)), me if me < n else -1, axis=axis,
-                             device=multihost.local_device(),
-                             backend=dist.get_backend(world_group))
+                             device=dev, backend=dist.get_backend(world_group))
     _MESHES[key] = (world_group, mesh)
     return mesh
 

@@ -230,9 +230,9 @@ class MiloSession:
             config = MiloSessionConfig(**overrides)
         elif overrides:
             config = dataclasses.replace(config, **overrides)
-        if config.multihost_init:
-            multihost.initialize()
         self.device = resolve_device(device)
+        if config.multihost_init:
+            multihost.initialize(device=self.device)
         self.config = config
         self.metadata: MiloMetadata | None = None
         self.loaded_from_artifact = False
@@ -496,6 +496,27 @@ class MiloSession:
             if key in fields and val is not None:
                 kwargs.setdefault(key, val)
         return build_selector(name, **kwargs)
+
+    def pipeline(
+        self,
+        make_batch,
+        selector: Selector,
+        batch_size: int,
+        *,
+        seed: int | None = None,
+        prefetch: bool = True,
+        arrays: dict | None = None,
+        resident: dict | None = None,
+    ) -> Pipeline:
+        """A ``Pipeline`` on the session's device and seed; with a buffer
+        registry and a column store, its shared device columns."""
+        if resident is None and arrays is not None and self.buffer_registry is not None:
+            resident = self.buffer_registry.get(arrays)
+        return Pipeline(
+            make_batch, selector, batch_size,
+            seed=self.config.seed if seed is None else seed,
+            prefetch=prefetch, arrays=arrays, resident=resident, device=self.device,
+        )
 
     # -- stage 2: train any number of downstream models ---------------------
 

@@ -24,7 +24,9 @@ survive):
     coordinator port, spawns N copies of a ``python -c`` script with the
     ``MILO_COORDINATOR``/``MILO_NUM_PROCESSES``/``MILO_PROCESS_ID`` env
     triplet ``multihost.initialize()`` reads, and collects per-process
-    (returncode, stdout, stderr) within a timeout of its own.
+    (returncode, stdout, stderr) within a timeout of its own.  The script
+    starts the group itself, naming its device: ``initialize(device="cpu")``
+    for gloo CPU processes (the default, the card, raises without one).
   * ``flip_payload_byte`` — corrupts one rank's compressed payload at an
     exact call, after its checksum was stamped (``core.sharded``'s
     ``payload_hook``): the ground truth for the integrity check.
@@ -158,7 +160,8 @@ def launch_hosts(
     Spawns ``python -c script argv...`` once per process with the
     ``MILO_*`` env triplet ``multihost.initialize()`` consumes (one shared
     free coordinator port), waits for ALL of them and returns their results
-    in process order.  The whole launch has one deadline, ``timeout`` s:
+    in process order.  The script calls ``initialize(device=...)`` itself
+    (``device="cpu"`` for CPU processes).  The whole launch has one deadline, ``timeout`` s:
     a process still running then is killed (its return code is then
     ``-SIGKILL`` and its stderr says so), so no process outlives it.  No
     return-code policy is imposed here — a kill test asserts ``-SIGKILL``

@@ -156,7 +156,9 @@ class Trainer:
         self.fused = fused
         self.superstep = superstep
         # externally owned resident columns (e.g. the ones a tune() sweep
-        # shares across its trials), else a private copy of the host columns
+        # shares across its trials; highest precedence), then the
+        # pipeline's shared ``resident`` columns, else a private copy of the
+        # host columns
         self._buffers: dict | None = resident_buffers
         self._pending_history: tuple | None = None
         self.monitor = StragglerMonitor()
@@ -286,9 +288,10 @@ class Trainer:
 
     def _resident_buffers(self) -> dict:
         if self._buffers is None:
-            dev = self._device()
-            self._buffers = {k: torch.as_tensor(v, device=dev)
-                             for k, v in self.pipeline.arrays.items()}
+            shared = getattr(self.pipeline, "resident", None)
+            self._buffers = shared if shared is not None else {
+                k: torch.as_tensor(v, device=self._device())
+                for k, v in self.pipeline.arrays.items()}
         return self._buffers
 
     def _fused_epoch(self, box: list, epoch: int, start_step: int, global_step: int,

@@ -477,7 +477,7 @@ import numpy as np, torch
 torch.set_num_threads(1)
 out = sys.argv[1]
 from repro_torch.distributed import multihost
-multihost.initialize(timeout=60.0)
+multihost.initialize(timeout=60.0, device="cpu")
 from repro_torch.core import sharded as S
 from repro_torch.core.similarity import normalize_rows
 from repro_torch.distributed.sharding import selection_mesh
@@ -511,7 +511,7 @@ mode, ckpt_dir, hb_dir, out = sys.argv[1:5]
 import numpy as np, torch
 torch.set_num_threads(1)
 from repro_torch.distributed import multihost
-multihost.initialize(timeout=60.0)
+multihost.initialize(timeout=60.0, device="cpu")
 from repro_torch.data.pipeline import Pipeline
 from repro_torch.selection import build_selector
 from repro_torch.selection import session as S

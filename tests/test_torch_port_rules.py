@@ -19,7 +19,8 @@ from repro_torch.selection import MiloSession, MiloSessionConfig, build_selector
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples" / "torch").glob("*.py")))
 
 SLICE_ON_CPU = """
 import sys
@@ -116,6 +117,35 @@ def test_lm_entry_points_default_to_the_card():
         lm.init_lm(cfg)
     with pytest.raises(RuntimeError, match="cuda"):
         lm.init_caches(cfg, 1, 8)
+
+
+def test_multihost_start_up_defaults_to_the_card(monkeypatch):
+    """``multihost.initialize`` resolves its device before it creates the
+    store: without a card the default (the card) raises, no store is made,
+    and a session resolves its own device before it starts the group."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch.distributed import multihost
+    from repro_torch.testing.faults import free_port
+
+    def no_store(*args, **kwargs):
+        raise AssertionError("a store was created before the device was resolved")
+
+    monkeypatch.setattr(torch.distributed, "TCPStore", no_store)
+    address = f"localhost:{free_port()}"
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.initialize(address, 2, 0)
+    assert not multihost.is_initialized()
+    with pytest.raises(RuntimeError, match="cuda"):
+        multihost.local_device()
+    monkeypatch.setenv("MILO_COORDINATOR", address)
+    monkeypatch.setenv("MILO_NUM_PROCESSES", "2")
+    monkeypatch.setenv("MILO_PROCESS_ID", "0")
+    with pytest.raises(RuntimeError, match="cuda"):
+        MiloSession(multihost_init=True)
+    with pytest.raises(ValueError, match="gloo"):
+        multihost.initialize(address, 2, 0, device="cpu", backend="nccl")
+    assert not multihost.is_initialized()
 
 
 def test_configs_build_from_each_other():

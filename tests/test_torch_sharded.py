@@ -106,7 +106,7 @@ import numpy as np, torch
 torch.set_num_threads(1)
 inp_path, out_path = sys.argv[1:3]
 from repro_torch.distributed import multihost
-assert multihost.initialize(timeout=60.0)
+assert multihost.initialize(timeout=60.0, device="cpu")
 from repro_torch.core import greedy as GR, sharded as S
 from repro_torch.core.milo import MiloPreprocessor
 from repro_torch.distributed.compression import CompressionIntegrityError

@@ -358,7 +358,7 @@ from repro_torch.models import lm
 from repro_torch.train import train_state as ts
 
 torch.set_num_threads(1)
-multihost.initialize(timeout=120.0)
+multihost.initialize(timeout=120.0, device="cpu")
 rank = dist.get_rank()
 tmp = sys.argv[1]
 ref = np.load(tmp + "/ref.npz")
