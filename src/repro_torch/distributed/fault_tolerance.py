@@ -1,11 +1,13 @@
 """Fault tolerance & elasticity utilities (a copy of
-``repro.distributed.fault_tolerance``: numpy-free, pure Python, so both
-packages derive the same cursors and plans).
+``repro.distributed.fault_tolerance``: numpy-free, so both packages derive
+the same cursors and plans; the straggler monitor times a step on the card
+with events).
 
 Pieces (composed by the Trainer):
-  * ``StragglerMonitor`` — per-step wall-time EWMA with z-score flagging of
-    slow steps (on real fleets: per-host step times gathered through a
-    lightweight all-gather; here: the local signal and the policy).
+  * ``StragglerMonitor`` — per-step time EWMA (device time on a card) with
+    z-score flagging of slow steps (on real fleets: per-host step times
+    gathered through a lightweight all-gather; here: the local signal and
+    the policy).
   * ``restart_state`` — deterministic recovery: the trainer's RNG, the MILO
     selector's epoch window, and the data-pipeline cursor are all pure
     functions of (seed, step), so resuming from checkpoint step N replays
@@ -18,6 +20,11 @@ from __future__ import annotations
 
 import dataclasses
 import time
+from collections import deque
+
+import torch
+
+from repro_torch import obs
 
 
 class HostLossError(RuntimeError):
@@ -39,28 +46,55 @@ class HostLossError(RuntimeError):
 
 @dataclasses.dataclass
 class StragglerMonitor:
-    """EWMA step-time tracker; flags steps slower than mean + z * std."""
+    """EWMA step-time tracker; flags steps slower than mean + z * std.
+
+    On a card (``device`` a CUDA device) a step's time is the device time
+    between timing events recorded by ``start`` and ``stop`` on the current
+    stream (``obs.device_event``), and a step is observed once its end event
+    has completed: late, and without a synchronisation.  ``drain`` waits for
+    the steps still pending.  Elsewhere the host clock times the step and
+    ``stop`` observes it at once."""
 
     alpha: float = 0.1
     z_threshold: float = 3.0
     warmup_steps: int = 5
+    device: str | torch.device | None = None
 
     def __post_init__(self):
         self._mean = 0.0
         self._var = 0.0
         self._n = 0
-        self._last_start: float | None = None
+        self._last_start = None
+        self._pending: deque = deque()
         self.flagged: list[tuple[int, float]] = []
 
+    def _on_card(self) -> bool:
+        return (self.device is not None and torch.device(self.device).type == "cuda"
+                and torch.cuda.is_available())
+
     def start(self) -> None:
-        self._last_start = time.perf_counter()
+        self._last_start = obs.device_event(self.device) if self._on_card() else time.perf_counter()
 
     def stop(self, step: int) -> bool:
-        """Record the step; return True if it is a straggler."""
+        """Record the step; return True if a step observed now is a
+        straggler (on a card, the steps whose end has completed by now)."""
         assert self._last_start is not None, "stop() without start()"
-        dt = time.perf_counter() - self._last_start
-        self._last_start = None
-        return self.observe(step, dt)
+        start, self._last_start = self._last_start, None
+        if not self._on_card():
+            return self.observe(step, time.perf_counter() - start)
+        self._pending.append((step, start, obs.device_event(self.device)))
+        return self._poll(wait=False)
+
+    def _poll(self, *, wait: bool) -> bool:
+        slow = False
+        while self._pending and (wait or self._pending[0][2].query()):
+            step, start, end = self._pending.popleft()
+            slow = self.observe(step, obs.elapsed_ms(start, end) * 1e-3) or slow
+        return slow
+
+    def drain(self) -> None:
+        """Observe every pending step, waiting for the card where needed."""
+        self._poll(wait=True)
 
     def observe(self, step: int, dt: float) -> bool:
         self._n += 1

@@ -98,6 +98,7 @@ def build(args: argparse.Namespace, *, cfg=None, wrap_step=None) -> dict:
 def summary(args: argparse.Namespace, run: dict, state) -> dict:
     """The reference's JSON summary of a finished run."""
     trainer = run["trainer"]
+    trainer.monitor.drain()
     final = trainer.history[-1] if trainer.history else {}
     return {
         "arch": run["cfg"].name, "selector": args.selector, "subset_k": run["subset_k"],

@@ -36,6 +36,7 @@ import torch
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.device import has_data
 from repro_torch.distributed.sharding import ambient_mesh, constrain, maybe
 from repro_torch.kernels._shards import as_dtensor
@@ -97,6 +98,37 @@ def _as_operand(t: torch.Tensor, op_dtype: torch.dtype) -> torch.Tensor:
     return t.to(op_dtype).float()
 
 
+def _clamped_sum(lo: int, hi: int, w: int) -> int:
+    """Σ min(max(a, 0), w) over the integers a in [lo, hi]."""
+    def run(p, q):  # Σ a over [p, q]
+        return (p + q) * (q - p + 1) // 2 if q >= p else 0
+
+    return run(max(lo, 1), min(hi, w)) + w * max(0, hi - max(lo, w + 1) + 1)
+
+
+def _count_block(shape, k0: int, msk, *, causal: bool, offset: int, valid_len) -> None:
+    """The counters of one block step over scores of ``shape`` (B, Hkv, G,
+    Sq, block): ``attn.block_steps``; ``attn.pairs_computed``, the (query,
+    key) pairs of every head scored; ``attn.pairs_kept``, those the causal
+    mask and the valid length keep.  With a Python ``valid_len`` the kept
+    count is worked out on the host; per-slot lengths (a tensor) are counted
+    on the device and read when the counters are."""
+    b, hkv, g, sq, block = shape
+    heads = b * hkv * g
+    obs.count("attn.block_steps", 1)
+    obs.count("attn.pairs_computed", heads * sq * block)
+    if torch.is_tensor(valid_len):
+        kept = msk.expand(msk.shape[0], 1, 1, sq, block).sum() * (hkv * g)
+        obs.count("attn.pairs_kept", kept * (b // msk.shape[0]))
+        return
+    w = max(0, min(k0 + block, valid_len) - k0)      # keys below the valid length
+    if causal:   # row r keeps the keys k0 .. r + offset
+        kept = _clamped_sum(offset + 1 - k0, sq + offset - k0, w)
+    else:
+        kept = sq * w
+    obs.count("attn.pairs_kept", heads * kept)
+
+
 def _chunk_step(qg, m, l, acc, kblk, vblk, k0: int, *, op_dtype, causal: bool, offset: int,
                 valid_len):
     """One KV block of the online softmax: (m, l, acc) → (m, l, acc)."""
@@ -111,6 +143,8 @@ def _chunk_step(qg, m, l, acc, kblk, vblk, k0: int, *, op_dtype, causal: bool, o
         rows = torch.arange(qg.shape[1], device=qg.device)[:, None] + offset
         msk = msk & (cols[None, :] <= rows)[None, None, None]
     s = torch.where(msk, s, torch.full((), NEG_INF, device=s.device))
+    if obs.recording():
+        _count_block(s.shape, k0, msk, causal=causal, offset=offset, valid_len=valid_len)
     m_new = torch.maximum(m, torch.amax(s, dim=-1))
     p = torch.exp(s - m_new[..., None])
     alpha = torch.exp(m - m_new)

@@ -20,6 +20,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import moe as moe_mod
@@ -114,53 +115,60 @@ def apply_block(
     ``xattn`` attends to.  ``attn_nc`` and ``xattn`` run in train mode with
     no cache in every mode (decode too), as in the reference."""
     mixer, ffn = kinds
-    h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    new_cache: Cache = None
-    if mixer in _ATTENTION:
-        causal = mixer == "attn"
-        if mixer == "xattn" and context is None:
-            raise ValueError("a cross-attention block needs a context")
-        y, kvc = attention(
-            p["mixer"], h, positions,
-            causal=causal,
-            impl=cfg.attention_impl,
-            rope_theta=cfg.rope_theta,
-            use_rope=cfg.use_rope and mixer != "xattn",  # the reference rotates no cross q
-            kv_x=context if mixer == "xattn" else None,
-            cache=cache if causal and mode == "decode" else None,
-            mode=mode if causal else "train",
-            block=cfg.attn_block,
-        )
-        if causal and mode == "decode":
-            new_cache = kvc
-        elif causal and mode == "prefill":
-            new_cache = _fit_cache(kvc, cache)
-    else:
-        # decode is the sequential one-token update whatever the impl
-        state = cache if mode == "decode" else None
-        if mixer == "mamba":
-            y, st = mamba(p["mixer"], h, chunk=cfg.ssm_chunk, state=state, mode=mode,
-                          impl=cfg.ssm_impl if mode != "decode" else "chunked")
-        elif mixer == "mlstm":
-            y, st = mlstm(p["mixer"], h, chunk=cfg.ssm_chunk, state=state, mode=mode)
+    # the mixer's span: norm1, the mixer and its residual
+    with obs.span("lm.attention" if mixer in _ATTENTION else "lm.mixer") as sp:
+        x = sp.input(x)
+        h = rms_norm(x, p["norm1"], cfg.norm_eps)
+        new_cache: Cache = None
+        if mixer in _ATTENTION:
+            causal = mixer == "attn"
+            if mixer == "xattn" and context is None:
+                raise ValueError("a cross-attention block needs a context")
+            y, kvc = attention(
+                p["mixer"], h, positions,
+                causal=causal,
+                impl=cfg.attention_impl,
+                rope_theta=cfg.rope_theta,
+                use_rope=cfg.use_rope and mixer != "xattn",  # the reference rotates no cross q
+                kv_x=context if mixer == "xattn" else None,
+                cache=cache if causal and mode == "decode" else None,
+                mode=mode if causal else "train",
+                block=cfg.attn_block,
+            )
+            if causal and mode == "decode":
+                new_cache = kvc
+            elif causal and mode == "prefill":
+                new_cache = _fit_cache(kvc, cache)
         else:
-            y, st = slstm(p["mixer"], h, state=state, mode=mode)
-        if mode in ("prefill", "decode"):
-            new_cache = st
-    x = constrain(x + y, "batch", None, None)
+            # decode is the sequential one-token update whatever the impl
+            state = cache if mode == "decode" else None
+            if mixer == "mamba":
+                y, st = mamba(p["mixer"], h, chunk=cfg.ssm_chunk, state=state, mode=mode,
+                              impl=cfg.ssm_impl if mode != "decode" else "chunked")
+            elif mixer == "mlstm":
+                y, st = mlstm(p["mixer"], h, chunk=cfg.ssm_chunk, state=state, mode=mode)
+            else:
+                y, st = slstm(p["mixer"], h, state=state, mode=mode)
+            if mode in ("prefill", "decode"):
+                new_cache = st
+        x = sp.output(constrain(x + y, "batch", None, None))
 
-    if ffn == "dense":
-        x = constrain(x + mlp(p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps)),
-                      "batch", None, None)
-    elif ffn == "moe":
-        x = x + moe_mod.moe(
-            p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps),
-            top_k=cfg.experts_per_token,
-            capacity_factor=cfg.capacity_factor,
-            group_size=cfg.moe_group_size,
-            dropless=(mode == "decode"),  # tiny token count: exact routing
-        )
-        x = constrain(x, "batch", None, None)
+    if ffn == "none":
+        return x, new_cache
+    with obs.span("lm.ffn") as sp:
+        x = sp.input(x)
+        h = rms_norm(x, p["norm2"], cfg.norm_eps)
+        if ffn == "dense":
+            y = mlp(p["ffn"], h)
+        else:
+            y = moe_mod.moe(
+                p["ffn"], h,
+                top_k=cfg.experts_per_token,
+                capacity_factor=cfg.capacity_factor,
+                group_size=cfg.moe_group_size,
+                dropless=(mode == "decode"),  # tiny token count: exact routing
+            )
+        x = sp.output(constrain(x + y, "batch", None, None))
     return x, new_cache
 
 

@@ -41,6 +41,7 @@ import torch
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import has_data, resolve_device
 from repro_torch.distributed.sharding import constrain, take_last
@@ -195,12 +196,28 @@ def forward(
     encoder-decoder's frame embeddings (cast to the activation dtype and
     run through the encoder), else what the ``xattn`` layers attend to, as
     given."""
-    table, final_norm = params["embed"], params["final_norm"]
+    x, new_caches = _trunk(params, cfg, tokens, context=context, mode=mode, caches=caches,
+                           pos0=pos0)
+    return _head(params, cfg, x), new_caches
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the tied unembedding: logits (B, S, V)."""
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return constrain(unembed(x, params["embed"]), "batch", None, "model")
+
+
+def _trunk(params: dict, cfg: ModelConfig, tokens, *, context, mode: str, caches: list | None,
+           pos0) -> tuple[torch.Tensor, list | None]:
+    """``forward`` up to the last block's output (B, S, D), and the new
+    caches."""
+    table = params["embed"]
     blocks = layer_params(params, cfg)
     dev = table.device
     tokens = torch.as_tensor(tokens, device=dev)
     b, s = tokens.shape
-    x = constrain(embed(tokens, table), "batch", None, None)
+    with obs.span("lm.embed") as sp:
+        x = sp.output(constrain(embed(tokens, sp.input(table)), "batch", None, None))
     if context is not None:
         context = torch.as_tensor(context, device=dev)
     if cfg.is_encdec:
@@ -235,8 +252,7 @@ def forward(
                                 kinds=kinds[i], context=context)
             if new_caches is not None:
                 new_caches.append(nc)
-    x = rms_norm(x, final_norm, cfg.norm_eps)
-    return constrain(unembed(x, table), "batch", None, "model"), new_caches
+    return x, new_caches
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, dict]:
@@ -249,23 +265,26 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict) -> tuple[torch.Tensor, 
     logit is gathered (the value the reference's one-hot contraction gives,
     without a (B, S, V) one-hot).  The loss is ``Σ nll · mask / max(Σ mask,
     1)`` with ``mask = loss_mask · weights[:, None]``."""
-    logits, _ = forward(params, cfg, batch["tokens"], context=batch.get("context"), mode="train")
-    dev = logits.device
-    labels = torch.as_tensor(batch["labels"], device=dev).long()
-    m = torch.amax(logits, dim=-1, keepdim=True).detach()
-    shifted = (logits - m).float()
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0].float()
-    if isinstance(logits, DTensor):  # on the vocabulary's shards
-        label_logit = take_last(logits, labels).float()
-    else:
-        label_logit = torch.gather(logits, -1, labels[..., None])[..., 0].float()
-    nll = lse - label_logit                                               # (B, S)
-    mask = batch.get("loss_mask")
-    mask = torch.ones_like(nll) if mask is None else torch.as_tensor(mask, device=dev)
-    w = batch.get("weights")
-    if w is not None:
-        mask = mask * torch.as_tensor(w, device=dev)[:, None]
-    loss = torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    x, _ = _trunk(params, cfg, batch["tokens"], context=batch.get("context"), mode="train",
+                  caches=None, pos0=0)
+    with obs.span("lm.head") as sp:
+        logits = _head(params, cfg, sp.input(x))
+        dev = logits.device
+        labels = torch.as_tensor(batch["labels"], device=dev).long()
+        m = torch.amax(logits, dim=-1, keepdim=True).detach()
+        shifted = (logits - m).float()
+        lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0].float()
+        if isinstance(logits, DTensor):  # on the vocabulary's shards
+            label_logit = take_last(logits, labels).float()
+        else:
+            label_logit = torch.gather(logits, -1, labels[..., None])[..., 0].float()
+        nll = lse - label_logit                                           # (B, S)
+        mask = batch.get("loss_mask")
+        mask = torch.ones_like(nll) if mask is None else torch.as_tensor(mask, device=dev)
+        w = batch.get("weights")
+        if w is not None:
+            mask = mask * torch.as_tensor(w, device=dev)[:, None]
+        loss = sp.output(torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0))
     return loss, {"loss": loss}
 
 

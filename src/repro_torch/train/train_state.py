@@ -5,7 +5,9 @@ The LM's parameters are the weight tree of ``models.lm`` (the reference's
 nested layout, group-stacked leaves as ``tree.Stacked`` lists).  A step
 differentiates ``lm.loss_fn`` with ``torch.autograd.grad`` over detached
 views of the parameters and returns a new state; the one it was given is
-left as it was.
+left as it was.  A step is ``obs``'s root span ``train.step``: profiled (or
+with ``obs.enable()``), it records its forward, backward, clip and
+optimizer update and the model's spans inside them.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch import tree as T
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.sharding import constrain
@@ -40,8 +43,10 @@ def _loss_and_grads(params: Any, cfg: ModelConfig, batch: dict):
     parameters' dtypes, as a tree of their structure."""
     leaves = [p.detach().requires_grad_(True) for p in T.leaves(params)]
     with torch.enable_grad():
-        loss, _ = lm.loss_fn(T.unflatten(params, leaves), cfg, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        with obs.span("train.forward"):
+            loss, _ = lm.loss_fn(T.unflatten(params, leaves), cfg, batch)
+        with obs.span("train.backward", backward=True):
+            grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), T.unflatten(params, list(grads))
 
 
@@ -51,15 +56,18 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer, lr_schedule, *,
     ``grad_norm`` (before clipping, when ``grad_clip``) and ``lr``."""
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = _loss_and_grads(state.params, cfg, batch)
-        metrics = {"loss": loss}
-        if grad_clip:
-            grads, gnorm = clip_by_global_norm(grads, grad_clip)
-            metrics["grad_norm"] = gnorm
-        lr = lr_schedule(state.step)
-        new_params, new_opt = opt.update(grads, state.opt_state, state.params, lr)
-        metrics["lr"] = lr
-        return TrainState(new_params, new_opt, state.step + 1), metrics
+        with obs.step("train.step", device=state.step.device):
+            loss, grads = _loss_and_grads(state.params, cfg, batch)
+            metrics = {"loss": loss}
+            if grad_clip:
+                with obs.span("train.clip"):
+                    grads, gnorm = clip_by_global_norm(grads, grad_clip)
+                metrics["grad_norm"] = gnorm
+            lr = lr_schedule(state.step)
+            with obs.span("optim.update"):
+                new_params, new_opt = opt.update(grads, state.opt_state, state.params, lr)
+            metrics["lr"] = lr
+            return TrainState(new_params, new_opt, state.step + 1), metrics
 
     return train_step
 
@@ -72,22 +80,25 @@ def make_grad_accum_train_step(cfg: ModelConfig, opt: Optimizer, lr_schedule, *,
     """
 
     def train_step(state: TrainState, batch: dict):
-        grads = T.map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
-                      state.params)
-        loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
-        for i in range(accum):
-            mb = {k: v[i] for k, v in batch.items()}
-            loss, g = _loss_and_grads(state.params, cfg, mb)
-            grads = T.map(torch.add, grads, g)
-            loss_sum = loss_sum + loss
-        grads = T.map(lambda g: g / accum, grads)
-        if grad_clip:
-            grads, _ = clip_by_global_norm(grads, grad_clip)
-        lr = lr_schedule(state.step)
-        new_params, new_opt = opt.update(grads, state.opt_state, state.params, lr)
-        return TrainState(new_params, new_opt, state.step + 1), {
-            "loss": loss_sum / accum, "lr": lr,
-        }
+        with obs.step("train.step", device=state.step.device):
+            grads = T.map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                          state.params)
+            loss_sum = torch.zeros((), dtype=torch.float32, device=state.step.device)
+            for i in range(accum):
+                mb = {k: v[i] for k, v in batch.items()}
+                loss, g = _loss_and_grads(state.params, cfg, mb)
+                grads = T.map(torch.add, grads, g)
+                loss_sum = loss_sum + loss
+            grads = T.map(lambda g: g / accum, grads)
+            if grad_clip:
+                with obs.span("train.clip"):
+                    grads, _ = clip_by_global_norm(grads, grad_clip)
+            lr = lr_schedule(state.step)
+            with obs.span("optim.update"):
+                new_params, new_opt = opt.update(grads, state.opt_state, state.params, lr)
+            return TrainState(new_params, new_opt, state.step + 1), {
+                "loss": loss_sum / accum, "lr": lr,
+            }
 
     return train_step
 

@@ -161,7 +161,7 @@ class Trainer:
         # host columns
         self._buffers: dict | None = resident_buffers
         self._pending_history: tuple | None = None
-        self.monitor = StragglerMonitor()
+        self.monitor = StragglerMonitor(device=getattr(pipeline, "device", None))
         self.ckpt = (CheckpointManager(tcfg.checkpoint_dir, barrier_timeout=tcfg.barrier_timeout)
                      if tcfg.checkpoint_dir else None)
         # multi-host liveness: beat + check at every step/segment boundary
@@ -529,6 +529,7 @@ class Trainer:
 
     def straggler_report(self) -> dict | None:
         """Run-level straggler roll-up (None when nothing was flagged)."""
+        self.monitor.drain()
         if not self.monitor.flagged:
             return None
         return {
