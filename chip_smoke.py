@@ -63,6 +63,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
     one replaced, through a misaligned x) on both measures, against the
     f32 bound and the bound of the split's own route, with the SM clock
     while it runs.
+11b. the chunked route's fused flash pair (B5's train instance and its
+    backward: delta, dK/dV, dQ) at the LM training cell's shape (2, 16/8,
+    4,096, 128) bf16 causal: its output and dq, dk, dv against the chunked
+    loop's and plain f32 attention's on the same inputs (the fused error at
+    most 1.5× the loop's plus 2⁻⁸·max|ref|, the card tests' tolerance), a
+    second backward bit-equal; each kernel's time (the backward's three
+    from the profiler) beside the loop's, its bound (4·D FLOP per kept
+    pair forward, 10·D backward, at the bf16 peak) and
+    ``scaled_dot_product_attention``'s forward and forward + backward.
 12. the LM serving path on yi-6b at full width and depth (bf16, random
     weights, ``attention_impl="pallas"``): ``ServeEngine(max_batch=4,
     max_len=2304)`` serves 8 requests of 256-2048 prompt tokens, 32 new
@@ -132,10 +141,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     per-stream workspaces dropped) before each session, after its work and
     after ``del``: the last must come back within 8 MiB of the first, and
     the largest tensors still alive are named when it does not.
-18. LM training with checkpoints, restart and the divergence guard (no
-    kernel of the table lies on this path: training runs chunked attention,
-    which the reference's Pallas kernel cannot replace under autograd —
-    asserted by the flash and SSD launch counts staying 0): (a)
+18. LM training with checkpoints, restart and the divergence guard
+    (chunked attention runs the fused flash pair on the card, B5's train
+    instance and its backward, counted apart from B5's serving launches;
+    those and the SSD kernel's stay 0, asserted): (a)
     ``launch/train.py``'s flow on internlm2-1.8b at full width and depth
     (24 layers, d_model 2048, 16/8 heads, vocab 92,544; bf16, chunked
     attention, remat): MILO over 512 documents, k = 128, batch 16 × 64
@@ -143,9 +152,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
     (steps 20 and 32); median step, steps/s and tokens/s over the steps'
     device time, loss first → last (must decrease), peak memory, the
     checkpoint's bytes and its save split into host snapshot, write+fsync
-    and sha256, validate+restore (bit-equal); then the chunked route (4 KV
-    blocks of 16) against naive attention on one batch, loss and every
-    gradient leaf within ``ROUTE_TOL``; (b) ``examples/train_lm_milo.py``'s
+    and sha256, validate+restore (bit-equal); then the chunked route (on
+    the card the fused pair, in 128-key tiles; in the CPU rehearsal the loop
+    in 4 KV blocks of 16) against naive attention on one batch, loss and
+    every gradient leaf within ``ROUTE_TOL``; (b) ``examples/train_lm_milo.py``'s
     kill-and-resume on granite-moe-1b-a400m at full width and depth (24
     layers, 32 experts top-8): 24 steps with checkpoints at 16 and 24, step
     24's shard corrupted by one byte, ``latest_valid_step`` skipping it, a
@@ -265,7 +275,9 @@ phase 5 for the similarity kernel, 7 for the gram-free kernels, 9 for the
 dense ``fl_gains`` kernel, 12 and 20 for flash attention, 13 for the SSD chunk; B1-B3
 also carry their phase 16 launches and errors, B4 its phase 17 launches and
 its time, bound and error at CRAIG's shape, B1 its phase 19 launches, B5
-its phase 20 launches by shape and its times at phase 20's shapes, B2 and
+its phase 20 launches by shape and its times at phase 20's shapes, B5's
+train instance and its backward their phase 11b times and errors and their
+phase 18 launches, B2 and
 B3 their phase 21 launches per rank, B5 and B6 their phase 22 launches,
 every kernel its phase 23 launches per example run),
 the card's name and power limit, and, last,
@@ -1548,6 +1560,110 @@ def phase_lm_kernel_timing(dev, smi: str) -> dict[str, dict]:
     return out
 
 
+# the fused pair's kernel instances (mangled-name substrings)
+FUSED_INSTANCES = {"train forward": "flash_wgmma_kernelILb1EE", "delta": "flash_bwd_delta_kernel",
+                   "dK/dV": "flash_bwd_dkdv_kernel", "dQ": "flash_bwd_dq_kernel"}
+
+
+def phase_fused_attention(dev, smi: str, report: str) -> dict[str, dict]:
+    """Phase 11b: the chunked route's fused pair at the LM training cell's
+    attention shape against the chunked loop and plain f32 attention, then
+    timed (CUDA events, mean of 20 after 3; the loop 3 after 1)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+    from repro_torch.models import attention as attn
+
+    b, hq, hkv, s, d = 2, 16, 8, 4096, 128
+    log(f"== phase 11b: the fused flash pair at ({b}, {hq}/{hkv}, {s}, {d}) bf16 causal")
+    gen = torch.Generator(device=dev).manual_seed(111)
+    leaves = [torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
+              .requires_grad_() for h in (hq, hkv, hkv)]
+    g = torch.randn((b, s, hq, d), generator=gen, device=dev).to(torch.bfloat16)
+
+    def out_and_grads(fn, qkv, grad):
+        out = fn(*qkv)
+        return [t.detach().float() for t in (out, *torch.autograd.grad(out, qkv, grad))]
+
+    fused_fn = lambda q, k, v: attn._chunked_attn(q, k, v, causal=True)  # noqa: E731
+    loop_fn = lambda q, k, v: attn._chunked_loop(  # noqa: E731
+        q, k, v, causal=True, block=512, k_len=None, op_dtype=torch.bfloat16)
+    before = fa.train_launches, fa.bwd_launches, fa.launches
+    fused = out_and_grads(fused_fn, leaves, g)
+    _sync(dev)
+    assert (fa.train_launches, fa.bwd_launches, fa.launches) == (
+        before[0] + 1, before[1] + 1, before[2]), "the fused pair, not B5's serving instance"
+    again = out_and_grads(fused_fn, leaves, g)
+    assert all(torch.equal(x, y) for x, y in zip(fused, again)), "repeats must be bit-equal"
+    del again
+    loop = out_and_grads(loop_fn, leaves, g)
+    ref = out_and_grads(lambda q, k, v: attn._naive_attn(q, k, v, causal=True),
+                        [t.detach().float().requires_grad_() for t in leaves], g.float())
+    errs = {}
+    for name, f, lo, r in zip(("out", "dq", "dk", "dv"), fused, loop, ref):
+        fe, le = float((f - r).abs().max()), float((lo - r).abs().max())
+        floor = 2.0 ** -8 * float(r.abs().max())
+        errs[name] = dict(fused=fe, loop=le, floor=floor)
+        log(f"  {name}: max |fused - f32| {fe:.3e}, max |loop - f32| {le:.3e} (bound 1.5 x the "
+            f"loop's + {floor:.3e})")
+        assert fe <= 1.5 * le + floor, (name, fe, le, floor)
+    del fused, loop, ref
+
+    qt, kt, vt, gt = (t.detach().transpose(1, 2) for t in (*leaves, g))
+    out, out_lo, lse = fa.flash_attention_train_cuda(qt, kt, vt, causal=True)
+    kept = b * hq * s * (s + 1) // 2
+    bound_f, bound_b = 4 * d * kept / PEAK_BF16_FLOPS * 1e3, 10 * d * kept / PEAK_BF16_FLOPS * 1e3
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_train_cuda(qt, kt, vt, causal=True))
+    bwd_ms = cuda_ms(lambda: fa.flash_attention_bwd_cuda(qt, kt, vt, out, out_lo, lse, gt))
+    serving_ms = cuda_ms(lambda: fa.flash_attention_cuda(qt, kt, vt, causal=True, scale=1.0))
+    # each backward kernel's device time, from the profiler's timeline
+    parts: dict[str, float | None] = {"delta": None, "dK/dV": None, "dQ": None}
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fa.flash_attention_bwd_cuda(qt, kt, vt, out, out_lo, lse, gt)
+        _sync(dev)
+    for e in prof.key_averages():
+        for label in parts:
+            if FUSED_INSTANCES[label] in e.key:
+                parts[label] = e.device_time_total / 5 / 1e3
+    with torch.no_grad():
+        plain_f = cuda_ms(lambda: loop_fn(*leaves), iters=3, warmup=1)
+    plain_fb = cuda_ms(lambda: out_and_grads(loop_fn, leaves, g), iters=3, warmup=1)
+    fused_fb = cuda_ms(lambda: out_and_grads(fused_fn, leaves, g))
+    sdpa = lambda q, k, v: F.scaled_dot_product_attention(  # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+        enable_gqa=True).transpose(1, 2)
+    with torch.no_grad():
+        lib_f = cuda_ms(lambda: sdpa(*leaves))
+    lib_fb = cuda_ms(lambda: out_and_grads(sdpa, leaves, g))
+    ptx = ptxas_instances(report, FUSED_INSTANCES)
+    smem = _build.function("flash_attention_bf16_bwd_smem_bytes", [ctypes.c_int])
+    ptx["train forward"]["dynamic_smem_bytes"] = _build.function(
+        "flash_attention_bf16_smem_bytes", [])()
+    ptx["dK/dV"]["dynamic_smem_bytes"], ptx["dQ"]["dynamic_smem_bytes"] = smem(0), smem(1)
+    log(f"train forward: {fwd_ms:.4f} ms ({bound_f / fwd_ms:.1%} of its {bound_f:.4f} ms bound); "
+        f"B5's serving instance {serving_ms:.4f} ms; loop forward {plain_f:.4f} ms; library "
+        f"scaled_dot_product_attention forward {lib_f:.4f} ms  [{smi}]")
+    log(f"backward: {bwd_ms:.4f} ms ({bound_b / bwd_ms:.1%} of its {bound_b:.4f} ms bound; "
+        f"profiler: {parts}); fused forward + backward {fused_fb:.4f} ms, loop {plain_fb:.4f} ms, "
+        f"library {lib_fb:.4f} ms  [{smi}]")
+    for label, st in ptx.items():
+        log(f"  {label}: {st}")
+    shape = f"({b}, {hq}/{hkv}, {s}, {d}) bf16 causal (the LM training cell's attention)"
+    return {
+        "flash_attention_train": dict(
+            ms=fwd_ms, plain_ms=plain_f, bound_ms=bound_f, bound_by="operations",
+            library_ms=lib_f, serving_ms=serving_ms, max_abs_err=errs["out"],
+            ptxas=ptx["train forward"], shape=shape),
+        "flash_attention_bwd": dict(
+            ms=bwd_ms, plain_ms=plain_fb, bound_ms=bound_b, bound_by="operations",
+            library_ms=lib_fb, fused_fwd_bwd_ms=fused_fb, kernel_ms=parts,
+            max_abs_err={k: errs[k] for k in ("dq", "dk", "dv")},
+            ptxas={k: ptx[k] for k in ("delta", "dK/dV", "dQ")},
+            shape=shape + "; plain_ms and library_ms are forward + backward under autograd")}
+
+
 def _reset_launches() -> None:
     """Every kernel wrapper's launch count to 0."""
     from repro_torch.kernels.fl_gains import fl_gains as fk
@@ -1555,7 +1671,7 @@ def _reset_launches() -> None:
     from repro_torch.kernels.similarity import similarity as sk
     from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
 
-    sk.launches = fa.launches = sc.launches = 0
+    sk.launches = fa.launches = fa.train_launches = fa.bwd_launches = sc.launches = 0
     for counts in (fk.launches, fk.gram_free_launches, fk.delta_launches, sc.instance_launches):
         for key in counts:
             counts[key] = 0
@@ -3094,7 +3210,8 @@ def phase_lm_launcher(dev, *, rehearsal: bool, smi: str) -> dict:
     every 20 steps and at the end), run by ``launch.train`` as the
     launcher's ``main`` runs it (a timing hook around the step); then the
     newest checkpoint validated and restored, and the chunked route against
-    naive attention on one batch with 4 KV blocks."""
+    naive attention on one batch (the fused pair on the card; the loop, in 4
+    KV blocks, on the CPU)."""
     from repro_torch import tree as T
     from repro_torch.configs import registry
     from repro_torch.launch import train as launch
@@ -3164,8 +3281,10 @@ def phase_lm_launcher(dev, *, rehearsal: bool, smi: str) -> dict:
     log(f"validate + restore of step 32: {restore_s:.3f} s; {held_leaves} leaves bit-equal to the "
         "trained state")
     del back
-    # route check: one batch, attn_block 16 (S = 64 spans 4 KV blocks),
-    # chunked against naive attention, at the trained weights
+    # route check: one batch, chunked against naive attention, at the
+    # trained weights.  On the card the chunked route is the fused pair
+    # (128-key tiles: S = 64 is one partial tile; phase 11b checks it at the
+    # cell's 4,096); attn_block 16 splits the CPU's loop into 4 KV blocks
     batch = tr.put_batch(next(iter(run["pipeline"].epoch(0))))
     chunked = dataclasses.replace(cfg, attn_block=16)
     naive = dataclasses.replace(cfg, attention_impl="naive")
@@ -3175,7 +3294,8 @@ def phase_lm_launcher(dev, *, rehearsal: bool, smi: str) -> dict:
                  torch.clamp_min(torch.linalg.vector_norm(b.float()), 1e-30))
            for a, b in zip(T.leaves(g_c), T.leaves(g_n))]
     loss_rel = abs(float(loss_c) - float(loss_n)) / abs(float(loss_n))
-    log(f"route check (4 KV blocks of 16 against naive, bf16): loss {float(loss_c):.6f} / "
+    route = "the fused pair, one 128-key tile" if dev.type == "cuda" else "4 KV blocks of 16"
+    log(f"route check ({route}, against naive, bf16): loss {float(loss_c):.6f} / "
         f"{float(loss_n):.6f} (relative {loss_rel:.2e}, bound {ROUTE_TOL['loss']}); gradient "
         f"leaves' relative error max {max(rel):.2e}, median {float(np.median(rel)):.2e} (bound "
         f"{ROUTE_TOL['grad']}); {smi}")
@@ -3431,7 +3551,8 @@ def phase_guard_fused(dev, x, y, md, *, epochs: int = 2, batch_size: int = 32,
 
 
 def phase_lm_training(dev, x, y, md, *, rehearsal: bool, smi: str) -> dict:
-    """Phase 18; no kernel of the table lies on its path (asserted)."""
+    """Phase 18; on the card its chunked attention runs the fused flash
+    pair, not B5's serving instance or the SSD kernel (asserted)."""
     _reset_launches()
     out = {"18a": phase_lm_launcher(dev, rehearsal=rehearsal, smi=smi),
            "18b": phase_lm_resume(dev, rehearsal=rehearsal)}
@@ -3440,6 +3561,9 @@ def phase_lm_training(dev, x, y, md, *, rehearsal: bool, smi: str) -> dict:
     from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
 
     assert fa.launches == sc.launches == 0, "phase 18 trains on chunked attention"
+    out["fused_attention_launches"] = {"train": fa.train_launches, "bwd": fa.bwd_launches}
+    if dev.type == "cuda":
+        assert fa.train_launches > 0 and fa.bwd_launches > 0, out["fused_attention_launches"]
     log("phase 18 summary: " + json.dumps(out, default=float))
     return out
 
@@ -5013,6 +5137,7 @@ def _kernel_launches() -> dict:
     from repro_torch.kernels.ssd_chunk import ssd_chunk as sc
 
     return {"similarity": sk.launches, **fk.launches, "flash_attention": fa.launches,
+            "flash_attention_train": fa.train_launches, "flash_attention_bwd": fa.bwd_launches,
             "ssd_chunk": sc.launches}
 
 
@@ -5142,6 +5267,7 @@ def main() -> int:
     del main_run, gf
     lm_err = phase_lm_kernel_checks(dev)
     lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
+    fused_attn = phase_fused_attention(dev, dev_info["smi"], report)
     serving = phase_lm_serving(dev, rehearsal=False)
     phase_fused_training(dev, *train_data.values(), md, epochs=12)
     phase_tuning(dev, *train_data.values(), md)
@@ -5149,8 +5275,8 @@ def main() -> int:
                               sizes=HIER_SIZES["full"], epochs=12)
     base = phase_baselines(dev, *train_data.values(), smi=dev_info["smi"],
                            sizes=BASELINE_SIZES["full"], epochs=12)
-    phase_lm_training(dev, train_data["x"], train_data["y"], md, rehearsal=False,
-                      smi=dev_info["smi"])
+    lm_train = phase_lm_training(dev, train_data["x"], train_data["y"], md, rehearsal=False,
+                                 smi=dev_info["smi"])
     service = phase_selection_service(dev, *train_data.values(), rehearsal=False,
                                       smi=dev_info["smi"])
     families = phase_last_families(dev, rehearsal=False, smi=dev_info["smi"])
@@ -5291,7 +5417,7 @@ def main() -> int:
         "launches": {sub: {"total": families[sub]["launches"], **families[sub]["shapes"]}
                      for sub in ("20b", "20c")},
         "times": lm_timing["flash_attention_phase20"]}
-    flash.update(ptxas_stats(report, "flash_wgmma_kernel"))
+    flash.update(ptxas_stats(report, "flash_wgmma_kernelILb0EE"))   # the serving instance
     flash["dynamic_smem_bytes"] = _build.function("flash_attention_bf16_smem_bytes", [])()
     log(f"flash_attention bf16 kernel: {flash['registers']} registers, spills "
         f"{flash['spill_store_bytes']} / {flash['spill_load_bytes']} bytes, "
@@ -5323,6 +5449,17 @@ def main() -> int:
     flash["launches"] += sum(flash["phase22"].values())
     ssd["phase22"] = {"22b": sharding["22b"]["launches"]}
     ssd["launches"] += ssd["phase22"]["22b"]
+    # B5's train instance and its backward: phase 11b's times and errors,
+    # phase 18's launches (LM training on the chunked route)
+    for name, kind in (("flash_attention_train", "train"), ("flash_attention_bwd", "bwd")):
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "src/repro_torch/csrc/flash_attention.cu",
+                        "replaces": "src/repro_torch/models/attention.py _chunked_loop (the "
+                                    "reference trains chunked attention in plain JAX)",
+                        "launches": lm_train["fused_attention_launches"][kind],
+                        **fused_attn[name]})
+    log(f"flash_attention train pair: {fused_attn['flash_attention_train']['ptxas']}, "
+        f"{fused_attn['flash_attention_bwd']['ptxas']}")
     # phase 23: each kernel's launches in each example run
     for kern in kernels:
         kern["phase23"] = {f"{sub} {name}": run["launches"][kern["name"]]

@@ -57,15 +57,16 @@ copies = 0
 _log = logging.getLogger(__name__)
 
 
-def tma_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> list[torch.Tensor]:
-    """q, k and v as the bf16 kernel's TMA maps take them: each one that is
-    not ``tma_ready`` (or all three, when D % 8 != 0: zero-padded to the next
-    multiple of 8) becomes an exact contiguous copy, counted and logged."""
+def tma_operands(*ts: torch.Tensor, names=("q", "k", "v")) -> list[torch.Tensor]:
+    """q, k and v (or the tensors ``ts``, named by ``names`` in the log) as
+    the bf16 kernels' TMA maps take them: each one that is not ``tma_ready``
+    (or all, when D % 8 != 0: zero-padded to the next multiple of 8) becomes
+    an exact contiguous copy, counted and logged."""
     global copies
-    d = q.shape[-1]
+    d = ts[0].shape[-1]
     pad = -d % 8
     out = []
-    for name, t in zip("qkv", (q, k, v)):
+    for name, t in zip(names, ts):
         if not pad and tma_ready(t):
             out.append(t)
             continue

@@ -11,7 +11,17 @@ Inner implementations:
                   of plain tensor ops here, bf16 operands with f32
                   accumulation, each block step recomputed in backward
                   (``torch.utils.checkpoint``, the reference's
-                  ``jax.checkpoint``); every mode, decode included;
+                  ``jax.checkpoint``); every mode, decode included.  On the
+                  card, bf16 self-attention without key lengths (q, k and v
+                  bf16 CUDA tensors with data, Sq = Sk, D <= 128 and
+                  D % 8 == 0) takes the fused pair instead: the flash
+                  kernel's train instance and its backward
+                  (``kernels/flash_attention``), through one autograd
+                  function, on the same operands (q / √d rounded to bf16, k,
+                  v), f32 scores and sums, p rounded to bf16 before p·v, and
+                  128-key tiles in place of ``block``.  Everything else (the
+                  CPU, f32, decode's key lengths, cross-attention, fake
+                  tensors) keeps the loop;
   * ``pallas``  — the hand-written CUDA flash-attention kernel
                   (``kernels/flash_attention``), prefill and train modes.  It
                   has no backward (the reference cannot differentiate its
@@ -40,6 +50,7 @@ from repro_torch import obs
 from repro_torch.device import has_data
 from repro_torch.distributed.sharding import ambient_mesh, constrain, maybe
 from repro_torch.kernels._shards import as_dtensor
+from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models.layers import apply_rope, init_dense
 
@@ -154,8 +165,100 @@ def _chunk_step(qg, m, l, acc, kblk, vblk, k0: int, *, op_dtype, causal: bool, o
     return m_new, l_new, acc_new
 
 
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda" and has_data(t)
+
+
+def _fused_route(q, k, v, *, k_len, op_dtype) -> bool:
+    """Whether ``_chunked_attn`` takes the fused kernels (module
+    docstring): decided from the inputs alone."""
+    d = q.shape[-1]
+    return (k_len is None and op_dtype == torch.bfloat16 and q.shape[1] == k.shape[1]
+            and d <= fa_kernel.D_MAX and d % 8 == 0 and min(q.numel(), k.numel()) > 0
+            and all(t.dtype == torch.bfloat16 and _on_card(t) for t in (q, k, v)))
+
+
+def _count_fused(shape, causal: bool, plans: tuple[bool, ...]) -> None:
+    """The attention counters of fused kernels over one (B, Hq, S, D) call,
+    one pass over the scores for each entry of ``plans`` (whether that
+    kernel walks them by keys, as the dK/dV kernel does): a block step is one
+    128-row query tile's pass over its key tiles, per head;
+    ``pairs_computed`` the pairs the kernels' warpgroups score
+    (``scored_pairs``); ``pairs_kept`` the causal count."""
+    b, h, s, _ = shape
+    heads = b * h
+    obs.count("attn.block_steps", heads * -(-s // fa_kernel.BQ_BF16) * len(plans))
+    obs.count("attn.pairs_computed",
+              heads * sum(fa_kernel.scored_pairs(s, causal, by_keys) for by_keys in plans))
+    kept = _clamped_sum(1, s, s) if causal else s * s
+    obs.count("attn.pairs_kept", heads * kept * len(plans))
+
+
+def _fused_forward(q, k, v, *, causal: bool, for_backward: bool):
+    """The train kernel's forward, counted: (o, o_lo, lse), the last two
+    None where no backward follows."""
+    res = fa_kernel.flash_attention_train_cuda(q, k, v, causal=causal, for_backward=for_backward)
+    if obs.recording():
+        obs.count("attn.fused_calls", 1)
+        _count_fused(q.shape, causal, (False,))
+    return res
+
+
+class _FusedAttention(torch.autograd.Function):
+    """The fused flash-attention pair at scale 1: q (B, Hq, S, D), k and v
+    (B, Hkv, S, D), bf16 and TMA-ready."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, out_lo, lse = _fused_forward(q, k, v, causal=causal, for_backward=True)
+        ctx.save_for_backward(q, k, v, out, out_lo, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, out_lo, lse = ctx.saved_tensors
+        if 0 in dout.stride():   # a broadcast gradient (of a sum) has no rows to map
+            dout = dout.contiguous()
+        (dout,) = fa_ops.tma_operands(dout, names=("dout",))
+        dq, dk, dv = fa_kernel.flash_attention_bwd_cuda(q, k, v, out, out_lo, lse, dout,
+                                                        causal=ctx.causal)
+        if obs.recording():   # the dK/dV kernel's and the dQ kernel's score passes
+            _count_fused(q.shape, ctx.causal, (True, False))
+        return dq, dk, dv, None
+
+
+def _fused_attn(q, k, v, *, causal: bool) -> torch.Tensor:
+    """(B, S, H, D) activations through ``_FusedAttention``, or, where no
+    gradient can reach q, k or v (serving's prefill, an encoder under
+    ``no_grad``), through the forward alone, which writes no lse and no
+    remainder.  The kernels read the activations through strides; a view
+    TMA cannot address is copied, counted in ``fa_ops.copies``."""
+    q, k, v = fa_ops.tma_operands(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FusedAttention.apply(q, k, v, causal).transpose(1, 2)
+    return _fused_forward(q, k, v, causal=causal, for_backward=False)[0].transpose(1, 2)
+
+
 def _chunked_attn(q, k, v, *, causal: bool, block: int = 512, k_len=None,
                   bf16_operands: bool = True) -> torch.Tensor:
+    """The ``chunked`` route: the fused kernels where ``_fused_route``
+    admits the inputs, else the loop (``_chunked_loop``).  Both divide q by
+    √d rounded to q's dtype, in q's dtype."""
+    op_dtype = q.dtype if (bf16_operands and q.dtype == torch.bfloat16) else torch.float32
+    if _fused_route(q, k, v, k_len=k_len, op_dtype=op_dtype):
+        return _fused_attn(q / _sqrt_d(q), k, v, causal=causal)
+    return _chunked_loop(q, k, v, causal=causal, block=block, k_len=k_len, op_dtype=op_dtype)
+
+
+def _sqrt_d(q: torch.Tensor) -> float:
+    """√d rounded to q's dtype, as the reference divides by it; a Python
+    number, since a tensor made from one on the card is a host-to-device
+    copy, which waits for the stream, in every layer."""
+    return torch.tensor(q.shape[-1] ** 0.5, dtype=q.dtype).item()
+
+
+def _chunked_loop(q, k, v, *, causal: bool, block: int, k_len, op_dtype) -> torch.Tensor:
     """Online-softmax attention over KV blocks of ``block`` keys (the
     reference's ``_chunked_attn``).  bf16 operands stay bf16-valued, the
     scores, (m, l, acc) and both contractions are f32.  Under autograd each
@@ -168,12 +271,7 @@ def _chunked_attn(q, k, v, *, causal: bool, block: int = 512, k_len=None,
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    op_dtype = q.dtype if (bf16_operands and q.dtype == torch.bfloat16) else torch.float32
-    # √d rounded to q's dtype, as the reference divides by it; a Python
-    # number, since a tensor made from one on the card is a host-to-device
-    # copy, which waits for the stream, in every layer
-    scale = torch.tensor(d ** 0.5, dtype=q.dtype).item()
-    qg = _as_operand((q / scale).reshape(b, sq, hkv, group, d), op_dtype)
+    qg = _as_operand((q / _sqrt_d(q)).reshape(b, sq, hkv, group, d), op_dtype)
     valid_len = sk if k_len is None else torch.as_tensor(k_len, device=q.device)
     m = torch.full((b, hkv, group, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, group, sq), dtype=torch.float32, device=q.device)
@@ -315,7 +413,8 @@ def attention(
     """Full attention sublayer: qkv projection → rope → attention → output
     projection.  Returns (output, cache): in ``prefill`` mode a new cache of
     the prompt's K/V, in ``decode`` mode ``cache`` itself, updated in place;
-    None in ``train`` mode.  ``block`` is the chunked route's KV block.
+    None in ``train`` mode.  ``block`` is the chunked loop's KV block (the
+    fused pair on the card tiles by 128 keys).
     ``kv_x`` (B, Sk, D): the cross-attention source of the keys and values
     (only queries rotate)."""
     if impl not in ("naive", "chunked", "pallas"):

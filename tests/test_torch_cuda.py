@@ -608,6 +608,186 @@ def test_flash_attention_kernel_copies_views_tma_cannot_take(cuda_device):
         fa_kernel.flash_attention_cuda(qu, k, v)
 
 
+# the fused training pair of the chunked route (B5's train instance and its
+# backward) against the chunked loop, both held against plain f32 attention
+# ---------------------------------------------------------------------------
+
+from repro_torch import obs  # noqa: E402
+from repro_torch.models import attention as attn  # noqa: E402
+
+# (B, Hq, Hkv, S, D, causal): the LM cell's shape; ragged lengths on either
+# side of a 128-row tile; D 64 (the second 64-column panel lies wholly past
+# D); groups 1, 2 and 8; non-causal, and whisper's encoder
+FUSED_SHAPES = [(2, 16, 8, 4096, 128, True), (1, 4, 2, 1000, 128, True),
+                (1, 4, 2, 4097, 128, True), (1, 4, 2, 300, 64, True), (1, 8, 8, 256, 128, True),
+                (1, 16, 2, 384, 128, True), (1, 4, 2, 1000, 128, False),
+                (1, 12, 12, 1500, 64, False)]
+
+
+def _model_qkv(rng, b, hq, hkv, s, d, dev):
+    """q, k and v as the model hands them over: (B, S, H, D) bf16 leaves."""
+    return [torch.from_numpy(rng.normal(size=(b, s, h, d)).astype(np.float32))
+            .to(dev, torch.bfloat16).requires_grad_() for h in (hq, hkv, hkv)]
+
+
+def _out_and_grads(fn, qkv, g):
+    out = fn(*qkv)
+    return [t.detach().float() for t in (out, *torch.autograd.grad(out, qkv, g))]
+
+
+def _loop(q, k, v, *, causal):
+    return attn._chunked_loop(q, k, v, causal=causal, block=512, k_len=None,
+                              op_dtype=torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", FUSED_SHAPES)
+def test_fused_attention_matches_the_loop(cuda_device, b, hq, hkv, s, d, causal):
+    """The fused route's output and dq, dk, dv against plain f32 attention on
+    the same bf16 values, beside the loop's.  Tolerance: the fused route's
+    worst error at most 1.5× the loop's plus a floor of half a bf16 ulp of
+    the largest reference value (2⁻⁸·max|ref|): the two round at different
+    points (p against the running max of 128-key tiles, not 512; the f32
+    sums in another order; dP kept in f32 where the loop's autograd rounds
+    it to bf16), so where the loop's error happens to be small a single
+    flip of an output's last bit must still pass."""
+    rng = np.random.default_rng(s + d + hq)
+    qkv = _model_qkv(rng, b, hq, hkv, s, d, cuda_device)
+    g = torch.from_numpy(rng.normal(size=(b, s, hq, d)).astype(np.float32)).to(cuda_device,
+                                                                            torch.bfloat16)
+    launches = fa_kernel.train_launches, fa_kernel.bwd_launches, fa_kernel.launches
+    fused = _out_and_grads(lambda q, k, v: attn._chunked_attn(q, k, v, causal=causal), qkv, g)
+    torch.cuda.synchronize()
+    assert (fa_kernel.train_launches, fa_kernel.bwd_launches, fa_kernel.launches) == (
+        launches[0] + 1, launches[1] + 1, launches[2]), "the fused pair, not the serving kernel"
+    loop = _out_and_grads(lambda q, k, v: _loop(q, k, v, causal=causal), qkv, g)
+    ref = _out_and_grads(lambda q, k, v: attn._naive_attn(q, k, v, causal=causal),
+                         [t.detach().float().requires_grad_() for t in qkv], g.float())
+    for name, f, lo, r in zip(("out", "dq", "dk", "dv"), fused, loop, ref):
+        assert torch.isfinite(f).all(), name
+        fe, le = float((f - r).abs().max()), float((lo - r).abs().max())
+        floor = 2.0 ** -8 * float(r.abs().max())
+        assert fe <= 1.5 * le + floor, (name, fe, le, floor)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,causal", [(1000, True), (1500, False)])
+def test_fused_attention_forward_alone_matches_the_train_forward(cuda_device, s, causal):
+    """Without a gradient to compute (serving's prefill), the fused route
+    runs the forward alone, which writes no lse and no remainder: its output
+    is the autograd forward's bit for bit."""
+    rng = np.random.default_rng(s)
+    qkv = _model_qkv(rng, 1, 4, 2, s, 128, cuda_device)
+    fn = lambda q, k, v: attn._chunked_attn(q, k, v, causal=causal)  # noqa: E731
+    with torch.no_grad():
+        alone = fn(*qkv)
+    with_grad = fn(*qkv)
+    assert with_grad.requires_grad and not alone.requires_grad
+    assert torch.equal(alone, with_grad.detach())
+
+
+@pytest.mark.cuda
+def test_fused_attention_gradients_bit_equal_across_runs(cuda_device):
+    """No float atomics: two backward runs on the same inputs give bit-equal
+    dq, dk and dv (and two forwards the same output)."""
+    rng = np.random.default_rng(7)
+    qkv = _model_qkv(rng, 2, 16, 8, 4096, 128, cuda_device)
+    g = torch.from_numpy(rng.normal(size=(2, 4096, 16, 128)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    fn = lambda q, k, v: attn._chunked_attn(q, k, v, causal=True)  # noqa: E731
+    first, second = _out_and_grads(fn, qkv, g), _out_and_grads(fn, qkv, g)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_fused_attention_takes_a_broadcast_gradient(cuda_device):
+    """The gradient of a sum reaches the backward as a broadcast view (zero
+    strides, no rows for a tensor map): it gives the gradients of the same
+    gradient held as a whole tensor."""
+    rng = np.random.default_rng(12)
+    qkv = _model_qkv(rng, 1, 4, 2, 300, 128, cuda_device)
+    fn = lambda q, k, v: attn._chunked_attn(q, k, v, causal=True)  # noqa: E731
+    whole = _out_and_grads(fn, qkv, torch.ones(1, 300, 4, 128, device=cuda_device,
+                                               dtype=torch.bfloat16))
+    summed = torch.autograd.grad(fn(*qkv).sum(), qkv)
+    for name, a, b in zip(("dq", "dk", "dv"), whole[1:], summed):
+        assert torch.equal(a, b.float()), name
+
+
+@pytest.mark.cuda
+def test_fused_attention_on_a_thread_with_no_bound_context(cuda_device):
+    """Autograd runs a backward and a remat recompute on its own device
+    thread, which may have reached the kernels through cached allocations
+    alone: the fused pair binds a context for its tensor maps there.  A fresh
+    thread, after the allocator's cache is warm, gives the main thread's
+    output and gradients bit for bit."""
+    import threading
+
+    rng = np.random.default_rng(11)
+    qkv = _model_qkv(rng, 1, 4, 2, 256, 128, cuda_device)
+    g = torch.ones(1, 256, 4, 128, device=cuda_device, dtype=torch.bfloat16)
+    fn = lambda q, k, v: attn._chunked_attn(q, k, v, causal=True)  # noqa: E731
+    main = _out_and_grads(fn, qkv, g)
+    got: dict = {}
+
+    def work():
+        try:
+            got["out"] = _out_and_grads(fn, qkv, g)
+        except Exception as e:  # reported below, in the test's thread
+            got["err"] = e
+
+    t = threading.Thread(target=work)
+    t.start()
+    t.join()
+    assert "err" not in got, got.get("err")
+    for name, a, b in zip(("out", "dq", "dk", "dv"), main, got["out"]):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,hkv,s,d,causal", [(2, 16, 8, 4096, 128, True),
+                                                 (1, 4, 2, 1000, 128, False),
+                                                 (1, 4, 2, 1000, 128, True)])
+def test_fused_attention_counters_equal_their_closed_forms(cuda_device, b, hq, hkv, s, d,
+                                                           causal):
+    """One forward and backward on the fused route: one fused call, three
+    passes over the scores (forward; the dK/dV kernel, the dQ kernel), each
+    one block step per 128-row query tile and head; the pairs each kernel's
+    warpgroups score under their skip conditions; the causal count kept."""
+    rng = np.random.default_rng(3)
+    qkv = _model_qkv(rng, b, hq, hkv, s, d, cuda_device)
+    g = torch.ones(b, s, hq, d, device=cuda_device, dtype=torch.bfloat16)
+    obs.REGISTRY.enabled = False
+    obs.reset()
+    obs.enable()
+    try:
+        with obs.step("probe", device="cuda"):
+            _out_and_grads(lambda q, k, v: attn._chunked_attn(q, k, v, causal=causal), qkv, g)
+        c = obs.snapshot()["counters"]
+    finally:
+        obs.REGISTRY.enabled = False
+        obs.reset()
+
+    # by enumeration of the kernels' skip conditions (csrc/flash_attention.cu):
+    # the forward's and dQ's warpgroup of 64 rows at row0 < S scores key tile
+    # k0 where k0 < wend; the dK/dV kernel's warpgroup of 64 keys at kw0 < S
+    # scores the 64-row step at q0 >= i0 * 64 where kw0 <= q0 + 63
+    by_rows = sum(64 * 128 for row0 in range(0, s, 64) for k0 in range(0, s, 128)
+                  if k0 < (min(row0 + 64, s) if causal else s))
+    by_keys = sum(64 * 64 for k0 in range(0, s, 128) for kw0 in (k0, k0 + 64) if kw0 < s
+                  for q0 in range((k0 // 64 if causal else 0) * 64, s, 64)
+                  if not causal or kw0 <= q0 + 63)
+    heads, nq = b * hq, -(-s // 128)
+    kept = s * (s + 1) // 2 if causal else s * s
+    assert c["attn.fused_calls"] == 1
+    assert c["attn.block_steps"] == 3 * heads * nq
+    assert c["attn.pairs_computed"] == heads * (2 * by_rows + by_keys)
+    assert c["attn.pairs_kept"] == 3 * heads * kept
+    if (s, causal) == (4096, True):   # 528 tiles of 128² twice, 2,080 steps of 64²: 97.49% kept
+        assert c["attn.pairs_computed"] == heads * (2 * 528 * 128 ** 2 + 2080 * 64 ** 2)
+
+
 def _ssd_inputs(rng, B, L, H, P, N, dev):
     arrs = (rng.normal(size=(B, L, H, P)), rng.uniform(0.6, 1.0, size=(B, L, H)),
             rng.normal(size=(B, L, N)), rng.normal(size=(B, L, N)),

@@ -211,6 +211,110 @@ def test_attention_counters_equal_their_closed_forms(sq, sk, block, causal, k_le
     assert (c["attn.block_steps"], c["attn.pairs_computed"], c["attn.pairs_kept"]) == want
 
 
+def _route_inputs(case):
+    """q, k and v of one route case: bf16 self-attention unless the case
+    changes it."""
+    g = torch.Generator().manual_seed(2)
+    s, d = 16, 136 if case == "d136" else 16
+    sk = 24 if case == "cross" else s
+    qdt = torch.float32 if case == "f32" else torch.bfloat16
+    kvdt = torch.float32 if case in ("f32", "f32_context") else torch.bfloat16
+    q = torch.randn(1, s, 4, d, generator=g).to(qdt)
+    k, v = (torch.randn(1, sk, 2, d, generator=g).to(kvdt) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", ["bf16", "f32", "f32_context", "k_len", "cross", "d136"])
+def test_chunked_route_takes_the_fused_pair_only_where_the_inputs_qualify(case, monkeypatch):
+    """With the inputs standing in for card tensors, only bf16 self-attention
+    without key lengths and a head dim TMA takes (<= 128, a multiple of 8)
+    reaches the fused kernels; f32 inputs, an f32 context, decode's key
+    lengths, cross-attention (Sq != Sk) and D 136 run the loop, which counts
+    its block steps and no fused call."""
+    calls = []
+    monkeypatch.setattr(attn, "_on_card", lambda t: True)
+    monkeypatch.setattr(attn, "_fused_attn",
+                        lambda q, k, v, *, causal: calls.append(causal) or torch.zeros_like(q))
+    q, k, v = _route_inputs(case)
+    k_len = torch.tensor([10]) if case == "k_len" else None
+    obs.enable()
+    with obs.step("probe", device="cpu"):
+        attn._chunked_attn(q, k, v, causal=case != "cross", block=8, k_len=k_len)
+    c = obs.snapshot()["counters"]
+    if case == "bf16":
+        assert calls == [True] and "attn.block_steps" not in c
+    else:
+        assert calls == [] and c["attn.block_steps"] > 0 and "attn.fused_calls" not in c
+
+
+def test_chunked_route_keeps_the_loop_off_the_card_and_on_fake_tensors():
+    """CPU tensors run the loop (no fused call counted); fake CUDA tensors
+    (the dry run's stand-ins, no data) never qualify, so ``launch/``'s counts
+    stay the loop's."""
+    from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
+
+    q, k, v = _route_inputs("bf16")
+    obs.enable()
+    with obs.step("probe", device="cpu"):
+        attn._chunked_attn(q, k, v, causal=True, block=8)
+    c = obs.snapshot()["counters"]
+    assert c["attn.block_steps"] == 2 and "attn.fused_calls" not in c
+    mode = FakeTensorMode()
+    fake = [FakeTensor(mode, t.to("meta"), torch.device("cuda")) for t in (q, k, v)]
+    assert all(t.device.type == "cuda" for t in fake)
+    assert not attn._fused_route(*fake, k_len=None, op_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 128, 200, 1000, 4096])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_scored_pairs_follow_the_kernels_skip_conditions(s, causal):
+    """``scored_pairs`` against an enumeration of the train kernels' skip
+    conditions (csrc/flash_attention.cu): the forward's and the dQ kernel's
+    warpgroup of 64 rows at row0 < S scores each 128-key tile that starts
+    before its end (min(row0 + 64, S), or S non-causal); the dK/dV kernel's
+    warpgroup of 64 keys at kw0 < S scores each 64-row step from its tile's
+    first (k0 // 64, causal) whose last row reaches kw0."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    by_rows = sum(64 * 128 for row0 in range(0, s, 64) for k0 in range(0, s, 128)
+                  if k0 < (min(row0 + 64, s) if causal else s))
+    by_keys = sum(64 * 64 for k0 in range(0, s, 128) for kw0 in (k0, k0 + 64) if kw0 < s
+                  for q0 in range((k0 // 64 if causal else 0) * 64, s, 64)
+                  if not causal or kw0 <= q0 + 63)
+    assert (fa.scored_pairs(s, causal, False), fa.scored_pairs(s, causal, True)) == (by_rows,
+                                                                                     by_keys)
+    kept = s * (s + 1) // 2 if causal else s * s
+    assert kept <= min(by_rows, by_keys)
+
+
+@pytest.mark.parametrize("grad", [True, False])
+def test_fused_route_writes_lse_only_where_a_backward_can_follow(grad, monkeypatch):
+    """With the inputs standing in for card tensors and a stand-in kernel,
+    the fused route asks for the lse and the output's remainder only where a
+    gradient can reach q, k or v: under ``no_grad`` (serving's prefill) the
+    forward runs alone and no autograd node is made.  Either way it counts
+    one fused call and the forward's pass."""
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    asked = []
+
+    def kernel(q, k, v, *, causal, for_backward):
+        asked.append(for_backward)
+        out = torch.zeros_like(q)
+        return (out, torch.zeros_like(q), torch.zeros(q.shape[:3])) if for_backward else (
+            out, None, None)
+
+    monkeypatch.setattr(attn, "_on_card", lambda t: True)
+    monkeypatch.setattr(fa, "flash_attention_train_cuda", kernel)
+    q, k, v = (t.requires_grad_() for t in _route_inputs("bf16"))
+    obs.enable()
+    with obs.step("probe", device="cpu"), torch.set_grad_enabled(grad):
+        out = attn._chunked_attn(q, k, v, causal=True, block=8)
+    c = obs.snapshot()["counters"]
+    assert asked == [grad] and out.requires_grad == grad and out.shape == q.shape
+    assert c["attn.fused_calls"] == 1 and c["attn.block_steps"] == 4 * 1
+
+
 def test_self_times_sum_to_their_parents(monkeypatch):
     """Host self times of the records always; device self times, per
     record and in the per-name totals, through stand-in events that read the
