@@ -1565,17 +1565,24 @@ FUSED_INSTANCES = {"train forward": "flash_wgmma_kernelILb1EE", "delta": "flash_
                    "dK/dV": "flash_bwd_dkdv_kernel", "dQ": "flash_bwd_dq_kernel"}
 
 
-def phase_fused_attention(dev, smi: str, report: str) -> dict[str, dict]:
-    """Phase 11b: the chunked route's fused pair at the LM training cell's
-    attention shape against the chunked loop and plain f32 attention, then
-    timed (CUDA events, mean of 20 after 3; the loop 3 after 1)."""
+# phase 11b's shapes (B, Hq, Hkv, S, D): the InternLM2 cell's attention and
+# LFM2-8B-A1B's (GQA 4:1 at D 64)
+FUSED_SHAPES = {"": ((2, 16, 8, 4096, 128), "the LM training cell's attention"),
+                "_d64": ((4, 32, 8, 8192, 64), "LFM2-8B-A1B's attention in its training cell")}
+
+
+def phase_fused_attention(dev, smi: str, report: str, suffix: str = "") -> dict[str, dict]:
+    """Phase 11b: the chunked route's fused pair at one of ``FUSED_SHAPES``
+    against the chunked loop and plain f32 attention, then timed (CUDA
+    events, mean of 20 after 3; the loop 3 after 1)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import flash_attention as fa
     from repro_torch.models import attention as attn
+    from repro_torch.testing.attention_reference import naive_by_kv_head
 
-    b, hq, hkv, s, d = 2, 16, 8, 4096, 128
+    (b, hq, hkv, s, d), what = FUSED_SHAPES[suffix]
     log(f"== phase 11b: the fused flash pair at ({b}, {hq}/{hkv}, {s}, {d}) bf16 causal")
     gen = torch.Generator(device=dev).manual_seed(111)
     leaves = [torch.randn((b, s, h, d), generator=gen, device=dev).to(torch.bfloat16)
@@ -1598,8 +1605,7 @@ def phase_fused_attention(dev, smi: str, report: str) -> dict[str, dict]:
     assert all(torch.equal(x, y) for x, y in zip(fused, again)), "repeats must be bit-equal"
     del again
     loop = out_and_grads(loop_fn, leaves, g)
-    ref = out_and_grads(lambda q, k, v: attn._naive_attn(q, k, v, causal=True),
-                        [t.detach().float().requires_grad_() for t in leaves], g.float())
+    ref = naive_by_kv_head(leaves, g)
     errs = {}
     for name, f, lo, r in zip(("out", "dq", "dk", "dv"), fused, loop, ref):
         fe, le = float((f - r).abs().max()), float((lo - r).abs().max())
@@ -1650,13 +1656,13 @@ def phase_fused_attention(dev, smi: str, report: str) -> dict[str, dict]:
         f"library {lib_fb:.4f} ms  [{smi}]")
     for label, st in ptx.items():
         log(f"  {label}: {st}")
-    shape = f"({b}, {hq}/{hkv}, {s}, {d}) bf16 causal (the LM training cell's attention)"
+    shape = f"({b}, {hq}/{hkv}, {s}, {d}) bf16 causal ({what})"
     return {
-        "flash_attention_train": dict(
+        "flash_attention_train" + suffix: dict(
             ms=fwd_ms, plain_ms=plain_f, bound_ms=bound_f, bound_by="operations",
             library_ms=lib_f, serving_ms=serving_ms, max_abs_err=errs["out"],
             ptxas=ptx["train forward"], shape=shape),
-        "flash_attention_bwd": dict(
+        "flash_attention_bwd" + suffix: dict(
             ms=bwd_ms, plain_ms=plain_fb, bound_ms=bound_b, bound_by="operations",
             library_ms=lib_fb, fused_fwd_bwd_ms=fused_fb, kernel_ms=parts,
             max_abs_err={k: errs[k] for k in ("dq", "dk", "dv")},
@@ -5205,6 +5211,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu-rehearsal", action="store_true",
                     help="run phases 1, 5-9 and 12-23 on the CPU at a tiny size (tests only)")
+    ap.add_argument("--only-fused-attention", action="store_true",
+                    help="run phases 1, 2 and 11b alone (both shapes) and print their kernels "
+                         "line")
     args = ap.parse_args()
     if not args.cpu_rehearsal and not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs on a CUDA card",
@@ -5247,6 +5256,21 @@ def main() -> int:
 
     dev = torch.device("cuda")
     report = phase_build()
+    if args.only_fused_attention:
+        from repro_torch.kernels.flash_attention import flash_attention as fa
+
+        kernels = []
+        for suffix in FUSED_SHAPES:
+            before = fa.train_launches, fa.bwd_launches
+            fused = phase_fused_attention(dev, dev_info["smi"], report, suffix)
+            for kind, n0, n1 in (("train", before[0], fa.train_launches),
+                                 ("bwd", before[1], fa.bwd_launches)):
+                name = f"flash_attention_{kind}{suffix}"
+                kernels.append({"name": name, "route": "cuda", "launches": n1 - n0,
+                                **fused[name]})
+        print(dev_info["smi"])
+        print(json.dumps({"kernels": kernels}))
+        return 0
     err = phase_kernel_checks(dev)
     fl_err = phase_fl_kernel_checks(dev)
     timing = phase_kernel_timing(dev, dev_info["smi"])
@@ -5268,6 +5292,11 @@ def main() -> int:
     lm_err = phase_lm_kernel_checks(dev)
     lm_timing = phase_lm_kernel_timing(dev, dev_info["smi"])
     fused_attn = phase_fused_attention(dev, dev_info["smi"], report)
+    from repro_torch.kernels.flash_attention import flash_attention as fa
+
+    before = fa.train_launches, fa.bwd_launches
+    fused_attn_64 = phase_fused_attention(dev, dev_info["smi"], report, "_d64")
+    launches_64 = {"train": fa.train_launches - before[0], "bwd": fa.bwd_launches - before[1]}
     serving = phase_lm_serving(dev, rehearsal=False)
     phase_fused_training(dev, *train_data.values(), md, epochs=12)
     phase_tuning(dev, *train_data.values(), md)
@@ -5458,6 +5487,14 @@ def main() -> int:
                                     "reference trains chunked attention in plain JAX)",
                         "launches": lm_train["fused_attention_launches"][kind],
                         **fused_attn[name]})
+    # the same pair at D 64 (phase 11b's second shape), its launches phase
+    # 11b's own
+    for kind in ("train", "bwd"):
+        kernels.append({"name": f"flash_attention_{kind}_d64", "route": "cuda",
+                        "source": "src/repro_torch/csrc/flash_attention.cu",
+                        "replaces": "src/repro_torch/models/attention.py _chunked_loop",
+                        "launches": launches_64[kind],
+                        **fused_attn_64[f"flash_attention_{kind}_d64"]})
     log(f"flash_attention train pair: {fused_attn['flash_attention_train']['ptxas']}, "
         f"{fused_attn['flash_attention_bwd']['ptxas']}")
     # phase 23: each kernel's launches in each example run

@@ -1,4 +1,8 @@
-"""Architecture registry: ``--arch <id>`` resolution for launchers/tests."""
+"""Architecture registry: ``--arch <id>`` resolution for launchers/tests.
+
+``ARCHS`` holds the reference's presets, one for one; ``PORT_ONLY`` the
+port's own (``HybridConfig`` presets the reference has none of).  ``get``
+and ``smoke`` resolve both."""
 from __future__ import annotations
 
 import dataclasses
@@ -7,6 +11,7 @@ from repro_torch.configs import (
     granite_moe,
     internlm2_1_8b,
     jamba_1_5_large,
+    lfm2_8b_a1b,
     llama32_vision_90b,
     phi35_moe,
     stablelm_12b,
@@ -16,6 +21,7 @@ from repro_torch.configs import (
     yi_9b,
 )
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig, shape_applies
+from repro_torch.configs.hybrid import HybridConfig
 
 ARCHS: dict[str, ModelConfig] = {
     m.CONFIG.name: m.CONFIG
@@ -25,19 +31,26 @@ ARCHS: dict[str, ModelConfig] = {
     ]
 }
 
+PORT_ONLY: dict[str, ModelConfig] = {lfm2_8b_a1b.CONFIG.name: lfm2_8b_a1b.CONFIG}
+
 
 def get(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    return ARCHS[name]
+    cfg = ARCHS.get(name) or PORT_ONLY.get(name)
+    if cfg is None:
+        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS) + sorted(PORT_ONLY)}")
+    return cfg
 
 
 def smoke(cfg: ModelConfig | str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     if isinstance(cfg, str):
         cfg = get(cfg)
+    extra = {}
+    if isinstance(cfg, HybridConfig):   # every expert held, at a smoke width
+        extra = dict(moe_d_ff=96 if cfg.num_experts else 0, experts_held=0, expert_offset=0)
     return dataclasses.replace(
         cfg,
+        **extra,
         num_layers=len(cfg.pattern),
         d_model=64,
         num_heads=4,

@@ -49,7 +49,7 @@ def build(args: argparse.Namespace, *, cfg=None, wrap_step=None) -> dict:
     from repro_torch.core.milo import MiloPreprocessor
     from repro_torch.data.datasets import TokenLMDataset
     from repro_torch.data.pipeline import Pipeline
-    from repro_torch.device import resolve_device
+    from repro_torch.device import grow_segments, resolve_device
     from repro_torch.optim.optimizers import adamw
     from repro_torch.optim.schedules import cosine
     from repro_torch.selection import build_selector
@@ -57,6 +57,7 @@ def build(args: argparse.Namespace, *, cfg=None, wrap_step=None) -> dict:
     from repro_torch.train.trainer import Trainer, TrainerConfig
 
     dev = resolve_device(args.device)
+    grow_segments(dev)
     if cfg is None:
         cfg = registry.smoke(args.arch) if args.smoke else registry.get(args.arch)
     ds = TokenLMDataset(n_docs=args.n_docs, seq_len=64, vocab=cfg.vocab_size, seed=args.seed)

@@ -32,6 +32,10 @@ returns K/V for the cache), ``decode`` (new tokens against a fixed-size
 cache, written in place at each slot's own length).  KV heads are not
 repeated in memory on either path.
 
+QK-norm (``q_norm`` and ``k_norm`` in the weights, each (Dh,) f32): a
+per-head RMSNorm of the queries and of the keys, f32 statistics, before the
+rotary embedding (LFM2's attention).
+
 Cross-attention (``kv_x``): keys and values are projected from the context
 and are not rotated.  A context in another dtype than the weights is
 promoted as JAX promotes it (an f32 context gives f32 keys and values
@@ -52,7 +56,7 @@ from repro_torch.distributed.sharding import ambient_mesh, constrain, maybe
 from repro_torch.kernels._shards import as_dtensor
 from repro_torch.kernels.flash_attention import flash_attention as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
-from repro_torch.models.layers import apply_rope, init_dense
+from repro_torch.models.layers import apply_rope, init_dense, rms_norm
 
 NEG_INF = -1e30
 
@@ -65,13 +69,17 @@ class KVCache:
 
 
 def init_attention(gen, d_model: int, n_heads: int, n_kv: int, head_dim: int,
-                   dtype=torch.bfloat16) -> dict:
-    return {
+                   dtype=torch.bfloat16, *, qk_norm: bool = False) -> dict:
+    p = {
         "wq": init_dense(gen, d_model, n_heads * head_dim, dtype).reshape(d_model, n_heads, head_dim),
         "wk": init_dense(gen, d_model, n_kv * head_dim, dtype).reshape(d_model, n_kv, head_dim),
         "wv": init_dense(gen, d_model, n_kv * head_dim, dtype).reshape(d_model, n_kv, head_dim),
         "wo": init_dense(gen, n_heads * head_dim, d_model, dtype).reshape(n_heads, head_dim, d_model),
     }
+    if qk_norm:
+        for name in ("q_norm", "k_norm"):
+            p[name] = torch.ones((head_dim,), dtype=torch.float32, device=gen.device)
+    return p
 
 
 def _naive_attn(q, k, v, *, causal: bool, k_len: torch.Tensor | None = None) -> torch.Tensor:
@@ -409,6 +417,7 @@ def attention(
     cache: KVCache | None = None,
     mode: str = "train",
     block: int = 512,
+    norm_eps: float = 1e-6,
 ) -> tuple[torch.Tensor, KVCache | None]:
     """Full attention sublayer: qkv projection → rope → attention → output
     projection.  Returns (output, cache): in ``prefill`` mode a new cache of
@@ -416,7 +425,8 @@ def attention(
     None in ``train`` mode.  ``block`` is the chunked loop's KV block (the
     fused pair on the card tiles by 128 keys).
     ``kv_x`` (B, Sk, D): the cross-attention source of the keys and values
-    (only queries rotate)."""
+    (only queries rotate).  ``norm_eps``: the QK-norm's epsilon, where the
+    weights hold ``q_norm`` and ``k_norm``."""
     if impl not in ("naive", "chunked", "pallas"):
         raise ValueError(f"unknown attention impl {impl!r}")
     if mode not in ("train", "prefill", "decode"):
@@ -430,6 +440,9 @@ def attention(
     wq, wk, wv, wo = params["wq"], params["wk"], params["wv"], params["wo"]
     q = _split_heads(x @ _flat(wq), wq.shape[1])
     k, v = (_project(x if kv_x is None else kv_x, w) for w in (wk, wv))
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], norm_eps)
+        k = rms_norm(k, params["k_norm"], norm_eps)
     if use_rope:
         q = apply_rope(q, positions, rope_theta)
         if kv_x is None:  # self-attention: keys rotate with their own positions

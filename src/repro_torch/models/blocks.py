@@ -12,20 +12,25 @@ values from the encoder's frames or the (fixed) context at every call.
 
 Mixers: ``attn`` (causal), ``attn_nc`` (the encoder's non-causal),
 ``xattn`` (cross-attention to ``context``), ``mamba``, ``mlstm``,
-``slstm``; FFNs: ``dense``, ``moe`` and ``none``.
+``slstm``, and the port's own ``conv`` (LFM2's gated short convolution,
+``short_conv``: train and prefill; no decode path); FFNs: ``dense``, ``moe``
+and ``none``.  A ``HybridConfig`` adds QK-norm to attention, the experts'
+own width and the dropless ``sigmoid_bias`` route of ``moe``.
 """
 from __future__ import annotations
 
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import obs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.hybrid import option
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import KVCache, attention, init_attention
-from repro_torch.models.layers import init_mlp, mlp, rms_norm
+from repro_torch.models.layers import init_dense, init_mlp, mlp, rms_norm
 from repro_torch.models.ssm import (
     init_mamba,
     init_mlstm,
@@ -40,8 +45,11 @@ from repro_torch.models.ssm import (
 
 Cache = Any  # KVCache | torch.Tensor (SSM state) | tuple (sLSTM state) | None
 
-_MIXERS = ("attn", "attn_nc", "xattn", "mamba", "mlstm", "slstm")
+_MIXERS = ("attn", "attn_nc", "xattn", "mamba", "mlstm", "slstm", "conv")
 _ATTENTION = ("attn", "attn_nc", "xattn")
+_NO_CONV_DECODE = ("the conv mixer has no decode path: decoding through the short convolution's "
+                   "state (its last conv_kernel - 1 gated inputs) is not ported; train, or "
+                   "prefill without caches")
 
 
 def check_block_kinds(mixer: str, ffn: str) -> None:
@@ -49,6 +57,35 @@ def check_block_kinds(mixer: str, ffn: str) -> None:
         raise ValueError(f"unknown mixer {mixer!r}")
     if ffn not in ("dense", "moe", "none"):
         raise ValueError(f"unknown ffn {ffn!r}")
+
+
+def init_short_conv(gen: torch.Generator, d_model: int, kernel: int, dtype) -> dict:
+    """``in_proj`` (D, 3D) giving B, C and x, the depthwise ``conv`` (D, K)
+    drawn uniform in ±1/√K (PyTorch's default for a fan-in of K) and held
+    in f32 (as the norm scales: K numbers a channel), and ``out_proj``
+    (D, D); no biases."""
+    bound = kernel ** -0.5
+    conv = (torch.rand((d_model, kernel), generator=gen, device=gen.device) * 2 - 1) * bound
+    return {"in_proj": init_dense(gen, d_model, 3 * d_model, dtype),
+            "conv": conv,
+            "out_proj": init_dense(gen, d_model, d_model, dtype)}
+
+
+def short_conv(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """LFM2's gated short convolution over x (B, S, D): (B, C, x) =
+    x·in_proj, y = out_proj(C ⊙ conv(B ⊙ x)), the convolution causal and
+    depthwise, tap K-1 on the current token and tap K-1-j on the token j
+    back.  The gating and the taps run in f32, rounded once before
+    ``out_proj``."""
+    bb, c, xx = (x @ p["in_proj"]).chunk(3, dim=-1)
+    w = p["conv"].float()
+    k = w.shape[1]
+    s = x.shape[1]
+    u = F.pad(bb.float() * xx.float(), (0, 0, k - 1, 0))
+    y = u[:, k - 1:] * w[:, k - 1]
+    for j in range(k - 1):
+        y = y + u[:, j:j + s] * w[:, j]
+    return (c.float() * y).to(x.dtype) @ p["out_proj"]
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dtype) -> dict:
@@ -59,7 +96,9 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dty
     p: dict[str, Any] = {"norm1": torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)}
     if mixer in _ATTENTION:
         p["mixer"] = init_attention(gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                                    cfg.head_dim, dtype)
+                                    cfg.head_dim, dtype, qk_norm=option(cfg, "qk_norm"))
+    elif mixer == "conv":
+        p["mixer"] = init_short_conv(gen, cfg.d_model, option(cfg, "conv_kernel"), dtype)
     elif mixer == "mamba":
         p["mixer"] = init_mamba(gen, cfg.d_model, expand=cfg.ssm_expand,
                                 head_dim=cfg.ssm_head_dim, d_state=cfg.ssm_state_dim, dtype=dtype)
@@ -70,16 +109,24 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, mixer: str, ffn: str, dty
         p["mixer"] = init_slstm(gen, cfg.d_model, dtype=dtype)
     if ffn != "none":
         p["norm2"] = torch.ones((cfg.d_model,), dtype=torch.float32, device=dev)
-        p["ffn"] = (init_mlp(gen, cfg.d_model, cfg.d_ff, dtype) if ffn == "dense"
-                    else moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.num_experts, dtype))
+        if ffn == "dense":
+            p["ffn"] = init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+        else:
+            routed = option(cfg, "router") == "sigmoid_bias"
+            p["ffn"] = moe_mod.init_moe(gen, cfg.d_model, option(cfg, "moe_d_ff"),
+                                        cfg.num_experts, dtype, held=option(cfg, "n_held"),
+                                        expert_bias=routed)
     return p
 
 
 def init_block_cache(cfg: ModelConfig, mixer: str, batch: int, cache_len: int, dtype,
                      device) -> Cache:
     """Zeroed cache for one block (length 0); ``None`` for the stateless
-    ``attn_nc`` and ``xattn``."""
+    ``attn_nc`` and ``xattn``.  ``conv`` has none: decoding through its
+    state is not ported."""
     check_block_kinds(mixer, "none")
+    if mixer == "conv":
+        raise NotImplementedError(_NO_CONV_DECODE)
     if mixer == "attn":
         shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
         return KVCache(torch.zeros(shape, dtype=dtype, device=device),
@@ -134,11 +181,17 @@ def apply_block(
                 cache=cache if causal and mode == "decode" else None,
                 mode=mode if causal else "train",
                 block=cfg.attn_block,
+                norm_eps=cfg.norm_eps,
             )
             if causal and mode == "decode":
                 new_cache = kvc
             elif causal and mode == "prefill":
                 new_cache = _fit_cache(kvc, cache)
+        elif mixer == "conv":
+            if mode == "decode":
+                raise NotImplementedError(_NO_CONV_DECODE)
+            with obs.span("lm.conv") as cs:
+                y = cs.output(short_conv(p["mixer"], cs.input(h)))
         else:
             # decode is the sequential one-token update whatever the impl
             state = cache if mode == "decode" else None
@@ -160,6 +213,10 @@ def apply_block(
         h = rms_norm(x, p["norm2"], cfg.norm_eps)
         if ffn == "dense":
             y = mlp(p["ffn"], h)
+        elif option(cfg, "router") == "sigmoid_bias":
+            y = moe_mod.moe_routed(p["ffn"], h, top_k=cfg.experts_per_token,
+                                   offset=option(cfg, "expert_offset"),
+                                   scale=option(cfg, "routed_scaling_factor"))
         else:
             y = moe_mod.moe(
                 p["ffn"], h,

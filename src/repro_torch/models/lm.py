@@ -190,9 +190,10 @@ def forward(
 ) -> tuple[torch.Tensor, list | None]:
     """Logits (B, S, V) in the activation dtype, and the new caches
     (``None`` unless ``caches`` were given).  With ``cfg.remat`` and
-    gradients on, each group of
-    ``len(cfg.pattern)`` layers is recomputed in backward (the reference's
-    ``jax.checkpoint`` around its scanned group).  ``context``: an
+    gradients on, each block is recomputed in backward on its own (the
+    reference's ``jax.checkpoint`` wraps its scanned group of
+    ``len(cfg.pattern)`` blocks; one block at a time holds one block's
+    activations however long the pattern).  ``context``: an
     encoder-decoder's frame embeddings (cast to the activation dtype and
     run through the encoder), else what the ``xattn`` layers attend to, as
     given."""
@@ -233,16 +234,12 @@ def _trunk(params: dict, cfg: ModelConfig, tokens, *, context, mode: str, caches
         positions = p0 + torch.arange(s, device=dev)[None, :]
     kinds = layer_kinds(cfg)
     if caches is None and cfg.remat and torch.is_grad_enabled():
-        p = len(cfg.pattern)
+        def one(x, i):
+            return apply_block(blocks[i], x, cfg=cfg, positions=positions, cache=None,
+                               mode=mode, kinds=kinds[i], context=context)[0]
 
-        def group(x, lo):
-            for i in range(lo, lo + p):
-                x, _ = apply_block(blocks[i], x, cfg=cfg, positions=positions, cache=None,
-                                   mode=mode, kinds=kinds[i], context=context)
-            return x
-
-        for lo in range(0, len(blocks), p):
-            x = checkpoint(group, x, lo, use_reentrant=False)
+        for i in range(len(blocks)):
+            x = checkpoint(one, x, i, use_reentrant=False)
         new_caches = None
     else:
         new_caches: list | None = None if caches is None else []

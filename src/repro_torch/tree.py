@@ -10,6 +10,10 @@ layer groups (the vmapped ``n_groups`` axis of ``params["groups"]``): the
 port holds the groups' tensors side by side, so each layer reads its own
 tensor without slicing, and a checkpoint stacks them back into the
 reference's one array.
+
+``Buffer`` holds state a tree carries but does not count among its leaves:
+it is read where it lies, and every transform passes it through as it is
+(so a train step neither differentiates nor updates it).
 """
 from __future__ import annotations
 
@@ -23,13 +27,25 @@ class Stacked(list):
     tensors, group ``g`` at index ``g``."""
 
 
+class Buffer:
+    """A tensor the tree carries and does not expose as a leaf (``value``)."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value: torch.Tensor):
+        self.value = value
+
+    def __repr__(self) -> str:
+        return f"Buffer({self.value!r})"
+
+
 def _is_namedtuple(tree: Any) -> bool:
     return isinstance(tree, tuple) and hasattr(tree, "_fields")
 
 
 def leaves(tree: Any) -> list[torch.Tensor]:
     """The tensors of ``tree`` in the reference's leaf order."""
-    if tree is None:
+    if tree is None or isinstance(tree, Buffer):
         return []
     if isinstance(tree, torch.Tensor):
         return [tree]
@@ -43,8 +59,8 @@ def leaves(tree: Any) -> list[torch.Tensor]:
 def map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:  # noqa: A001
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest`` (trees of the same structure); the result has ``tree``'s."""
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, Buffer):
+        return tree
     if isinstance(tree, torch.Tensor):
         return fn(tree, *rest)
     if isinstance(tree, dict):
@@ -66,8 +82,8 @@ def unflatten(tree: Any, new_leaves: list) -> Any:
 
 
 def _rebuild(tree: Any, flat: list, pos) -> Any:
-    if tree is None:
-        return None
+    if tree is None or isinstance(tree, Buffer):
+        return tree
     if isinstance(tree, torch.Tensor):
         return flat[next(pos)]
     if isinstance(tree, dict):

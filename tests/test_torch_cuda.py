@@ -614,6 +614,7 @@ def test_flash_attention_kernel_copies_views_tma_cannot_take(cuda_device):
 
 from repro_torch import obs  # noqa: E402
 from repro_torch.models import attention as attn  # noqa: E402
+from repro_torch.testing.attention_reference import naive_by_kv_head  # noqa: E402
 
 # (B, Hq, Hkv, S, D, causal): the LM cell's shape; ragged lengths on either
 # side of a 128-row tile; D 64 (the second 64-column panel lies wholly past
@@ -663,6 +664,30 @@ def test_fused_attention_matches_the_loop(cuda_device, b, hq, hkv, s, d, causal)
     loop = _out_and_grads(lambda q, k, v: _loop(q, k, v, causal=causal), qkv, g)
     ref = _out_and_grads(lambda q, k, v: attn._naive_attn(q, k, v, causal=causal),
                          [t.detach().float().requires_grad_() for t in qkv], g.float())
+    for name, f, lo, r in zip(("out", "dq", "dk", "dv"), fused, loop, ref):
+        assert torch.isfinite(f).all(), name
+        fe, le = float((f - r).abs().max()), float((lo - r).abs().max())
+        floor = 2.0 ** -8 * float(r.abs().max())
+        assert fe <= 1.5 * le + floor, (name, fe, le, floor)
+
+
+@pytest.mark.cuda
+def test_fused_attention_at_the_hybrid_cells_head_width(cuda_device):
+    """The fused pair at LFM2-8B-A1B's attention in its training cell: (4,
+    32/8, 8,192, 64) causal, GQA 4:1 at D 64, against the loop and plain f32
+    attention, at ``test_fused_attention_matches_the_loop``'s tolerance."""
+    b, hq, hkv, s, d = 4, 32, 8, 8192, 64
+    rng = np.random.default_rng(64)
+    qkv = _model_qkv(rng, b, hq, hkv, s, d, cuda_device)
+    g = torch.from_numpy(rng.normal(size=(b, s, hq, d)).astype(np.float32)).to(cuda_device,
+                                                                            torch.bfloat16)
+    launches = fa_kernel.train_launches, fa_kernel.bwd_launches
+    fused = _out_and_grads(lambda q, k, v: attn._chunked_attn(q, k, v, causal=True), qkv, g)
+    torch.cuda.synchronize()
+    assert (fa_kernel.train_launches, fa_kernel.bwd_launches) == (launches[0] + 1,
+                                                                  launches[1] + 1)
+    loop = _out_and_grads(lambda q, k, v: _loop(q, k, v, causal=True), qkv, g)
+    ref = naive_by_kv_head(qkv, g)
     for name, f, lo, r in zip(("out", "dq", "dk", "dv"), fused, loop, ref):
         assert torch.isfinite(f).all(), name
         fe, le = float((f - r).abs().max()), float((lo - r).abs().max())
@@ -1277,3 +1302,36 @@ def test_vit_on_the_card_matches_the_cpu(cuda_device):
                else v.cpu()) for k, v in params.items()}
     np.testing.assert_allclose(z.cpu().numpy(), vit_encode(cpu, imgs, cfg).numpy(),
                                rtol=1e-4, atol=2e-4)
+
+
+# the dropless expert layer's grouped products on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_dropless_moe_grouped_route_matches_the_expert_loop(cuda_device, monkeypatch):
+    """LFM2-8B-A1B's expert layer at its cell's widths (d 2,048, experts 1,792
+    wide, 8 held of 32, top-4, 32,768 tokens): ``torch._grouped_mm`` over the
+    device's group ends against the loop over the held experts, output and
+    gradients within bf16's 2⁻⁶ of the largest value (the two sum each
+    product's terms in other orders), and bit-equal repeats."""
+    from repro_torch.models import moe
+
+    if not hasattr(torch, "_grouped_mm"):
+        pytest.skip("this torch has no _grouped_mm")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = moe.init_moe(gen, 2048, 1792, 32, torch.bfloat16, held=8, expert_bias=True)
+    p["expert_bias"].value.copy_(0.05 * torch.randn(32, generator=gen, device=cuda_device))
+    leaves = [p[w].requires_grad_(True) for w in ("router", "w_gate", "w_up", "w_down")]
+    x = torch.randn(4, 8192, 2048, generator=gen, device=cuda_device).to(torch.bfloat16)
+    x.requires_grad_(True)
+    g = torch.randn(4, 8192, 2048, generator=gen, device=cuda_device).to(torch.bfloat16)
+    runs = []
+    for grouped in (False, True, True):
+        monkeypatch.setattr(moe, "_grouped_route", lambda *a, grouped=grouped: grouped)
+        y = moe.moe_routed(p, x, top_k=4)
+        runs.append([y.detach().float(), *(t.float() for t in torch.autograd.grad(
+            y, [x, *leaves], g))])
+    assert all(torch.equal(a, b) for a, b in zip(runs[1], runs[2])), "repeats must be bit-equal"
+    for name, a, b in zip(("y", "dx", "drouter", "dw_gate", "dw_up", "dw_down"), *runs[:2]):
+        assert torch.isfinite(b).all(), name
+        assert float((a - b).abs().max()) <= 2.0 ** -6 * float(a.abs().max()), name

@@ -152,3 +152,23 @@ def test_launcher_hands_its_state_to_the_trainer():
     assert "state" not in run and run["fit_s"] > 0
     assert len(calls) == int(state.step) == 4
     assert first["params"]() is None, "the initial parameters outlived the run"
+
+
+@pytest.mark.parametrize("device,conf,expected", [
+    ("cuda", "", ["expandable_segments:True"]),
+    ("cuda", "max_split_size_mb:512", ["expandable_segments:True"]),
+    ("cuda", "expandable_segments:False", []),
+    ("cpu", "", []),
+])
+def test_training_on_the_card_grows_allocator_segments(monkeypatch, device, conf, expected):
+    """``grow_segments`` (which the launcher calls on its device) sets the
+    CUDA allocator's ``expandable_segments`` for a card, unless the
+    process's ``PYTORCH_CUDA_ALLOC_CONF`` names the setting itself, and
+    leaves the CPU alone."""
+    from repro_torch.device import grow_segments
+
+    calls = []
+    monkeypatch.setattr(torch.cuda.memory, "_set_allocator_settings", calls.append)
+    monkeypatch.setenv("PYTORCH_CUDA_ALLOC_CONF", conf)
+    grow_segments(torch.device(device))
+    assert calls == expected
